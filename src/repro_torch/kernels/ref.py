@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the CEP window-join kernels.
+
+Semantics (shared with the CUDA kernels in ``csrc/window_join.cu``): given
+``C`` constraint rows, left-side values ``L[c, m]``, right-side values
+``R[c, b]``, per-row op-codes and thresholds, compute
+
+    ok[m, b] = AND_c  cmp(op[c], L[c, m], R[c, b], theta[c])
+
+with the op-code table of ``repro_torch.core.patterns``:
+
+    0 (NONE)   -> True
+    1 (LT)     -> l <  r + theta
+    2 (GT)     -> l >  r - theta
+    3 (ABS_LE) -> |l - r| <= theta
+
+Every function takes optional leading batch dimensions (the fleet's K
+partition axis): ``L`` is ``(..., C, M)``, ``R`` is ``(..., C, B)``, per-row
+ops are ``(..., C)`` and the thresholds ``(C,)`` or ``(..., C)``.  Without a
+batch dimension each function is a literal twin of the JAX package's
+reference, which is what the CPU tests hold them to, bit for bit.  The CPU
+path of the engine runs these; ``chip_smoke.py`` holds the CUDA kernels
+against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cmp_op(op, l, r, theta):
+    """Elementwise comparison dispatch; broadcasts ``l`` vs ``r``."""
+    lt = l < r + theta
+    gt = l > r - theta
+    ab = torch.abs(l - r) <= theta
+    true = torch.ones_like(lt)
+    return torch.where(
+        op == 1, lt, torch.where(op == 2, gt, torch.where(op == 3, ab, true))
+    )
+
+
+def _row(x, c):
+    """Constraint row ``c`` of a ``(..., C)`` op/threshold strip, shaped to
+    broadcast against ``(..., M, B)``."""
+    return x[..., c, None, None]
+
+
+def window_join_packed_ref(L, R, ops8, thetas, mvalid, bvalid):
+    """Packed oracle: ok[m, b] = mvalid & bvalid & AND_c row_c.
+
+    L: (..., C, M) f32, R: (..., C, B) f32, ops8: (..., C) i8,
+    thetas: (C,) or (..., C) f32, mvalid: (..., M), bvalid: (..., B)
+    i8/u8/bool.  Returns (..., M, B) bool.  The float comparisons are the
+    exact expressions of ``cmp_op``; op-codes outside 0..3 select nothing.
+    """
+    acc = (mvalid > 0)[..., :, None] & (bvalid > 0)[..., None, :]
+    for c in range(L.shape[-2]):  # keeps the working set at (..., M, B)
+        l = L[..., c, :, None]
+        r = R[..., c, None, :]
+        th = _row(thetas, c)
+        o = _row(ops8, c)
+        lt = l < r + th
+        gt = l > r - th
+        ab = torch.abs(l - r) <= th
+        ok = (lt & (o == 1)) | (gt & (o == 2)) | (ab & (o == 3)) | (o == 0)
+        acc = acc & ok
+    return acc
+
+
+def window_join_rowcount_ref(L, R, ops, thetas):
+    """Per-m surviving-pair counts: cnt[m] = sum_b AND_c row_c[m, b].
+
+    The dense AND of ``cmp_op`` rows summed over b, loop-accumulated so no
+    (C, M, B) stack is materialized.  Feeds the negation veto
+    (cnt > 0) and Kleene companion counts (cnt - 1) of the engine's
+    finalize pass.  Returns (..., M) int32.
+    """
+    M, B = L.shape[-1], R.shape[-1]
+    acc = torch.ones(L.shape[:-2] + (M, B), dtype=torch.bool,
+                     device=L.device)
+    for c in range(L.shape[-2]):
+        ok = cmp_op(_row(ops, c), L[..., c, :, None], R[..., c, None, :],
+                    _row(thetas, c))
+        acc = acc & ok
+    return acc.sum(dim=-1, dtype=torch.int32)

@@ -1,0 +1,217 @@
+"""CUDA kernels for the CEP masked windowed cross-join: build, bind, launch.
+
+The hot loop of the vectorized CEP engine is, per plan step, a dense
+cross-evaluation of ``C`` constraint rows between ``M`` partial matches and
+``B`` buffered events, for every fleet partition ``k``:
+
+    ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[c]).
+
+Two kernels, written by hand for Hopper in ``csrc/window_join.cu``:
+
+* ``window_join_packed_cuda`` replaces ``window_join_packed_pallas``: the
+  order engine's join step, validity as two uint8 vectors, ``(K, M, B)``
+  bool mask out.
+* ``window_join_rowcount_cuda`` replaces ``window_join_rowcount_pallas``:
+  per-row counts ``(K, M)`` int32 for the negation veto and the Kleene
+  count; the mask is never stored.
+
+Build.  The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, at first use, under
+``build/repro_torch_kernels/`` at the repository root, named by a hash of
+the source and flags (a changed source rebuilds, an unchanged one loads).
+It is loaded with ``ctypes``.  Nothing here runs at import: the module
+imports on a machine without ``nvcc`` or a GPU, and only a launch builds.
+
+Launch.  Each wrapper checks device, dtype, shape and contiguity, allocates
+its output with ``torch.empty``, launches on PyTorch's current stream and
+raises if the C launcher returns a CUDA error.  It adds one to its entry of
+``LAUNCHES`` where it launches, and nowhere else.
+
+Small shapes.  The JAX package's ``_tile_waste`` sends mostly-padding
+shapes to its jnp reference instead of the TPU kernel.  The port does not
+carry that rule over: a CUDA tensor always launches the kernel.  Its
+threshold would be re-derived from H100 launch times, once they exist.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCE = _CSRC / "window_join.cu"
+_REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = _REPO_ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launch counts per kernel, bumped only where a kernel is launched.
+LAUNCHES: Dict[str, int] = {"window_join_packed": 0,
+                            "window_join_rowcount": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+BUILD_INFO: Dict[str, object] = {}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(_SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"window_join_{digest[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels (if this source has not been built yet) and
+    return the shared library's path.  Records the compiler's resource
+    report and the build seconds in ``BUILD_INFO``."""
+    so = library_path()
+    if so.exists():
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("log", "(cached)")
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial
+    BUILD_INFO["seconds"] = time.perf_counter() - t
+    BUILD_INFO["log"] = proc.stdout + proc.stderr
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.wj_packed.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.wj_packed.restype = i32
+        lib.wj_rowcount.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.wj_rowcount.restype = i32
+        lib.wj_error_string.argtypes = [i32]
+        lib.wj_error_string.restype = ctypes.c_char_p
+        lib.wj_max_c.argtypes = []
+        lib.wj_max_c.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _as_u8(t):
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _dims(L, R):
+    """(K, C, M, B) of a launch, checked before anything is built."""
+    if L.dim() != 3 or R.dim() != 3:
+        raise ValueError("L and R must be (K, C, M) and (K, C, B)")
+    if L.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {L.device} tensor")
+    lib = load_library()
+    K, C, M = L.shape
+    B = R.shape[2]
+    if C > lib.wj_max_c():
+        raise ValueError(f"C={C} constraint rows exceed the kernel's "
+                         f"limit of {lib.wj_max_c()}")
+    if max(K, M, B) >= 2 ** 31 or K >= 65536:
+        raise ValueError(f"shape (K={K}, M={M}, B={B}) exceeds the grid")
+    return lib, (K, C, M, B)
+
+
+def _launched(rc, lib, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.wj_error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+
+
+def window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid):
+    """ok[k, m, b] = mvalid & bvalid & AND_c sel_c — (K, M, B) bool.
+
+    L: (K, C, M) f32, R: (K, C, B) f32, ops8: (K, C) int8, thetas: (C,)
+    f32, mvalid: (K, M), bvalid: (K, B) uint8 or bool; all contiguous on
+    one CUDA device.
+    """
+    lib, (K, C, M, B) = _dims(L, R)
+    dev = L.device
+    mvalid, bvalid = _as_u8(mvalid), _as_u8(bvalid)
+    _check("L", L, torch.float32, (K, C, M), dev)
+    _check("R", R, torch.float32, (K, C, B), dev)
+    _check("ops8", ops8, torch.int8, (K, C), dev)
+    _check("thetas", thetas, torch.float32, (C,), dev)
+    _check("mvalid", mvalid, torch.uint8, (K, M), dev)
+    _check("bvalid", bvalid, torch.uint8, (K, B), dev)
+    out = torch.empty((K, M, B), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out.view(torch.bool)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wj_packed(L.data_ptr(), R.data_ptr(), ops8.data_ptr(),
+                           thetas.data_ptr(), mvalid.data_ptr(),
+                           bvalid.data_ptr(), out.data_ptr(), K, C, M, B,
+                           stream)
+    _launched(rc, lib, "window_join_packed")
+    return out.view(torch.bool)
+
+
+def window_join_rowcount_cuda(L, R, ops, thetas):
+    """cnt[k, m] = sum_b AND_c cmp(...) — (K, M) int32.
+
+    L: (K, C, M) f32, R: (K, C, B) f32, ops: (K, C) int32, thetas: (C,)
+    f32; all contiguous on one CUDA device.
+    """
+    lib, (K, C, M, B) = _dims(L, R)
+    dev = L.device
+    _check("L", L, torch.float32, (K, C, M), dev)
+    _check("R", R, torch.float32, (K, C, B), dev)
+    _check("ops", ops, torch.int32, (K, C), dev)
+    _check("thetas", thetas, torch.float32, (C,), dev)
+    out = torch.empty((K, M), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wj_rowcount(L.data_ptr(), R.data_ptr(), ops.data_ptr(),
+                             thetas.data_ptr(), out.data_ptr(), K, C, M, B,
+                             stream)
+    _launched(rc, lib, "window_join_rowcount")
+    return out

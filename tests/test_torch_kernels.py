@@ -1,0 +1,176 @@
+"""The port's join kernels against the JAX package's, on the CPU.
+
+The plain PyTorch versions (``repro_torch.kernels.ref``) must be
+bit-identical to the JAX references and to the Pallas kernels run in
+interpret mode, over the cases of ``tests/test_packed_kernels.py``: op
+codes 0-3, C up to 32, M and B that are not tile multiples, zero-padded
+validity, all-none op stacks, and values on a coarse grid so that ties
+(``l == r + theta``) occur.  The CUDA kernels themselves run only on a
+GPU: ``test_cuda_kernels_match_plain`` carries the ``gpu`` marker and
+skips here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import window_join_packed_ref as jax_packed_ref
+from repro.kernels.ref import window_join_rowcount_ref as jax_rowcount_ref
+from repro.kernels.window_join import (window_join_packed_pallas,
+                                       window_join_rowcount_pallas)
+from repro_torch.kernels import ops, ref, window_join
+
+
+def _coarse(rng, shape):
+    return (rng.integers(-6, 7, size=shape) * 0.25).astype(np.float32)
+
+
+def _case(rng, C, M, B):
+    L = _coarse(rng, (C, M))
+    R = _coarse(rng, (C, B))
+    op = rng.integers(0, 4, size=(C,)).astype(np.int32)
+    th = np.abs(_coarse(rng, (C,)))
+    mv = (rng.random(M) > 0.3).astype(np.int8)
+    bv = (rng.random(B) > 0.3).astype(np.int8)
+    return L, R, op, th, mv, bv
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("C,M,B", [
+    (1, 1, 1), (2, 7, 5), (4, 128, 128), (9, 130, 257),
+    (16, 64, 300), (32, 256, 384),
+])
+def test_packed_plain_matches_jax(C, M, B, rng):
+    L, R, op, th, mv, bv = _case(rng, C, M, B)
+    op8 = op.astype(np.int8)
+    want_ref = np.asarray(jax_packed_ref(L, R, op8, th, mv, bv))
+    want_int = np.asarray(window_join_packed_pallas(
+        L, R, op8, th, mv, bv, interpret=True))
+    got = ref.window_join_packed_ref(*_t(L, R, op8, th, mv, bv)).numpy()
+    assert got.dtype == np.bool_ and got.shape == (M, B)
+    assert (got == want_ref).all()
+    assert (got == want_int).all()
+    # The dispatch sends a CPU tensor to the same plain version.
+    got_ops = ops.window_join_packed(*_t(L, R, op8, th, mv, bv)).numpy()
+    assert (got_ops == want_ref).all()
+
+
+def test_packed_all_none_ops_respects_validity(rng):
+    C, M, B = 3, 130, 129
+    L, R, _, _, mv, bv = _case(rng, C, M, B)
+    op8 = np.zeros(C, np.int8)
+    th = np.zeros(C, np.float32)
+    want = np.asarray(window_join_packed_pallas(L, R, op8, th, mv, bv,
+                                                interpret=True))
+    got = ref.window_join_packed_ref(*_t(L, R, op8, th, mv, bv)).numpy()
+    assert (got == want).all()
+    assert got.sum() == int(mv.sum()) * int(bv.sum())
+
+
+def test_packed_ties_are_exercised(rng):
+    """The coarse grid must actually produce l == r + theta ties on the
+    active LT rows, or the exactness cases would not test them."""
+    L, R, op, th, _, _ = _case(rng, 9, 130, 257)
+    ties = (L[:, :, None] == R[:, None, :] + th[:, None, None])
+    assert ties[op == 1].any()
+
+
+@pytest.mark.parametrize("C,M,B", [
+    (1, 1, 1), (2, 7, 5), (9, 130, 257), (32, 64, 300),
+])
+def test_rowcount_plain_matches_jax(C, M, B, rng):
+    L, R, op, th, _, _ = _case(rng, C, M, B)
+    want_ref = np.asarray(jax_rowcount_ref(L, R, op, th))
+    want_int = np.asarray(window_join_rowcount_pallas(L, R, op, th,
+                                                      interpret=True))
+    got = ref.window_join_rowcount_ref(*_t(L, R, op, th)).numpy()
+    assert got.dtype == np.int32 and got.shape == (M,)
+    assert (got == want_ref).all()
+    assert (got == want_int).all()
+    got_ops = ops.window_join_rowcount(*_t(L, R, op, th)).numpy()
+    assert (got_ops == want_ref).all()
+
+
+def test_rowcount_all_none_ops_counts_true_extent(rng):
+    C, M, B = 2, 130, 140
+    L, R, _, _, _, _ = _case(rng, C, M, B)
+    got = ref.window_join_rowcount_ref(
+        *_t(L, R, np.zeros(C, np.int32), np.zeros(C, np.float32))).numpy()
+    assert (got == B).all()
+
+
+def test_batched_plain_versions_equal_per_partition_loop(rng):
+    """A leading K axis (the fleet) changes nothing per partition; ops
+    differ per partition, thresholds are shared."""
+    K, C, M, B = 3, 6, 40, 33
+    cases = [_case(rng, C, M, B) for _ in range(K)]
+    th = cases[0][3]
+    L, R, op, _, mv, bv = (np.stack([c[i] for c in cases])
+                           for i in range(6))
+    op8 = op.astype(np.int8)
+    packed = ref.window_join_packed_ref(*_t(L, R, op8, th, mv, bv)).numpy()
+    counts = ref.window_join_rowcount_ref(*_t(L, R, op, th)).numpy()
+    for k in range(K):
+        assert (packed[k] == np.asarray(jax_packed_ref(
+            L[k], R[k], op8[k], th, mv[k], bv[k]))).all()
+        assert (counts[k] == np.asarray(jax_rowcount_ref(
+            L[k], R[k], op[k], th))).all()
+
+
+def test_dispatch_rules(rng):
+    L, R, op, th, mv, bv = _t(*_case(rng, 3, 9, 7))
+    before = dict(ops.LAUNCHES)
+    ops.window_join_packed(L, R, op.to(torch.int8), th, mv, bv)
+    ops.window_join_rowcount(L, R, op, th, backend="ref")
+    assert ops.LAUNCHES == before  # the plain versions launch nothing
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.window_join_packed(L, R, op.to(torch.int8), th, mv, bv,
+                               backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.window_join_rowcount(L, R, op, th, backend="cuda")
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        ops.window_join_rowcount(L, R, op, th, backend="pallas")
+    # The CUDA wrapper refuses a CPU tensor before it builds anything.
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
+        window_join.window_join_rowcount_cuda(L[None], R[None], op[None], th)
+    assert ops.LAUNCHES == before
+
+
+def test_kernel_module_imports_without_nvcc():
+    """Importing (and naming the build product) needs no compiler: the
+    build runs at the first launch, never at import."""
+    path = window_join.library_path()
+    assert path.parent == window_join.BUILD_DIR
+    assert path.name.startswith("window_join_") and path.suffix == ".so"
+    assert window_join.BUILD_DIR.parts[-2:] == ("build",
+                                                "repro_torch_kernels")
+    assert set(window_join.LAUNCHES) == {"window_join_packed",
+                                         "window_join_rowcount"}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the GPU)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,M,B", [(8, 1000, 333), (32, 257, 1030)])
+def test_cuda_kernels_match_plain(C, M, B, cuda_device, rng):
+    K = 3
+    cases = [_case(rng, C, M, B) for _ in range(K)]
+    L, R, op, _, mv, bv = (
+        torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda_device)
+        for i in range(6))
+    th = torch.from_numpy(cases[0][3]).to(cuda_device)
+    op8, mv, bv = op.to(torch.int8), mv > 0, bv > 0
+    assert torch.equal(ops.window_join_packed(L, R, op8, th, mv, bv),
+                       ops.window_join_packed(L, R, op8, th, mv, bv,
+                                              backend="ref"))
+    assert torch.equal(ops.window_join_rowcount(L, R, op, th),
+                       ops.window_join_rowcount(L, R, op, th,
+                                                backend="ref"))
