@@ -9,18 +9,24 @@ Phases (each prints its seconds; any failure exits non-zero):
 
 1. device   — torch's device name, and nvidia-smi's name and power limit;
 2. build    — nvcc builds the CUDA kernels from ``src/repro_torch``;
-3. kernels  — each kernel against its plain PyTorch version on the card,
-              bit for bit, at the main path's shapes, at ragged shapes and
-              over every op code with ties; median times (CUDA events);
-4. main     — ``repro_torch.cep.open(...).run(...)`` on the K=16 FlowSense
-              alert rule at full width, with the launch counters zeroed
-              just before and read just after; then the same stream again
-              with ``backend="ref"`` (plain versions, on the card), which
-              must give equal integer telemetry;
-5. oracle   — a narrow K=4 stream on the card against the brute-force
-              ``RefEngine``;
+3. kernels  — each of the four kernels against its plain PyTorch version
+              on the card, bit for bit, at its path's shapes, at ragged
+              shapes, over every op code with ties and negative
+              thresholds, and on all-op-0 stacks; median times (CUDA
+              events) beside each kernel's bound;
+4. main     — ``repro_torch.cep.open(..., plan="order").run(...)`` on the
+              K=16 FlowSense alert rule at full width, with the launch
+              counters zeroed just before and read just after; then the
+              same stream again with ``backend="ref"`` (plain versions, on
+              the card), which must give equal integer telemetry;
+5. oracle   — a narrow K=4 order-plan stream on the card against the
+              brute-force ``RefEngine``;
 6. profile  — the first chunks of the main path under ``torch.profiler``:
-              device-busy share and the ops with the most device time.
+              device-busy share and the ops with the most device time;
+7. tree     — phases 4-6 for ``plan="tree"`` (ZStream trees, the unpacked
+              join): the full-width run with its own launch counts and its
+              plain rerun, the narrow run against ``RefEngine``, and the
+              profile of its first chunks.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -54,11 +60,24 @@ CHUNK_CAP = 512
 B_CAP = 1024
 M_CAP = 8192
 
+# Monitored tree sessions need explicit invariant caps (the ZStream set's
+# size depends on the statistics): the JAX tests'.  A replan whose set
+# outgrows them raises, so a run that finishes shows they suffice.
+TREE_CAPS = dict(max_invariants=8, max_terms=16)
+# One pow2 escalation of a tree step (m_cap 16384) holds a 4 GiB mask and
+# a 16 GiB running count; a second would not fit in 80 GB.
+TREE_MAX_ESCALATIONS = 1
+
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
     "window_join_packed": "src/repro/kernels/window_join.py:295",
     "window_join_rowcount": "src/repro/kernels/window_join.py:383",
+    "window_join": "src/repro/kernels/window_join.py:120",
+    "window_join_count": "src/repro/kernels/window_join.py:202",
 }
+# The kernels each path must launch.
+PATH_KERNELS = {"order": ("window_join_packed", "window_join_rowcount"),
+                "tree": ("window_join", "window_join_rowcount")}
 INT_FIELDS = ("chunks", "events", "matches", "replans", "deployments",
               "violations", "host_syncs", "overflow", "dropped",
               "neg_rejected", "closure_expansions", "escalations",
@@ -129,6 +148,19 @@ def rowcount_inputs(gen, k, c, m, b, device):
     return L, R, ops, th
 
 
+def unpacked_inputs(gen, k, c, m, b, device):
+    """Operands of the tree engine's join: every op code 0-4 (4: "else
+    true") and thresholds of either sign."""
+    import torch
+
+    L = coarse(gen, (k, c, m), device)
+    R = coarse(gen, (k, c, b), device)
+    ops = torch.randint(0, 5, (k, c), generator=gen,
+                        device=device).to(torch.int32)
+    th = coarse(gen, (c,), device)
+    return L, R, ops, th
+
+
 def cuda_ms(fn, reps=10, inner=5):
     """Median ms per call over ``reps`` event-timed runs of ``inner``
     calls each, after a warm-up."""
@@ -150,6 +182,15 @@ def cuda_ms(fn, reps=10, inner=5):
     return statistics.median(times)
 
 
+def roofline(nbytes, n_ops):
+    """(ms, what bounds it): the larger of the bytes over the card's
+    memory rate and the f32 operations over its non-tensor f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def packed_bound(L, R, ops8, th, mv, bv):
     """Least time for the packed join on these inputs: each input read
     once and the byte mask written once, against 3 f32 operations (shift,
@@ -161,10 +202,7 @@ def packed_bound(L, R, ops8, th, mv, bv):
     cells = (mv.sum(1).double() * bv.sum(1).double())
     active = (ops8 != 0).sum(1).double()
     ops = float((cells * (3 * active + 1)).sum())
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return roofline(nbytes, ops)
 
 
 def rowcount_bound(L, R, ops, th):
@@ -176,14 +214,36 @@ def rowcount_bound(L, R, ops, th):
     nbytes = 4 * (L.numel() + R.numel() + th.numel() + ops.numel() + k * m)
     active = ((ops >= 1) & (ops <= 3)).sum(1).double()
     ops_n = float((m * b * (3 * active + 1)).sum())
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops_n / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return roofline(nbytes, ops_n)
 
 
-def check_kernels(device, c_packed, c_rowcount):
-    """Both kernels vs their plain versions at the main path's shapes and
+def join_bound(L, R, ops, th):
+    """Least time for the unpacked join on these inputs: each input read
+    once and the byte mask written once, against 3 f32 operations (shift,
+    compare, AND) per active constraint row of every cell."""
+    k, c, m = L.shape
+    b = R.shape[2]
+    nbytes = 4 * (L.numel() + R.numel() + th.numel() + ops.numel()) \
+        + k * m * b
+    active = ((ops >= 1) & (ops <= 3)).sum(1).double()
+    ops_n = float((m * b * 3 * active).sum())
+    return roofline(nbytes, ops_n)
+
+
+def count_bound(L, R, ops, th):
+    """Least time for the pair count: inputs read once, K counts written
+    once, against 3 f32 operations per active row of every cell plus one
+    add per cell."""
+    k, c, m = L.shape
+    b = R.shape[2]
+    nbytes = 4 * (L.numel() + R.numel() + th.numel() + ops.numel() + k)
+    active = ((ops >= 1) & (ops <= 3)).sum(1).double()
+    ops_n = float((m * b * (3 * active + 1)).sum())
+    return roofline(nbytes, ops_n)
+
+
+def check_kernels(device, c_packed, c_rowcount, c_join):
+    """The four kernels vs their plain versions at their paths' shapes and
     at ragged / extreme shapes; returns the timing records."""
     import torch
 
@@ -210,18 +270,34 @@ def check_kernels(device, c_packed, c_rowcount):
         if not torch.equal(got, want):
             raise AssertionError(
                 f"rowcount kernel != plain at {(k, c, m, b)}")
-    print(f"   bit-identical to the plain versions at {len(shapes)} packed "
-          f"and {len(shapes)} rowcount shapes (all op codes, ties, "
-          "all-none stacks)")
+    tree_shape = (K_MAIN, c_join, M_CAP, M_CAP)
+    for (k, c, m, b) in [tree_shape] + shapes[1:]:
+        args = unpacked_inputs(gen, k, c, m, b, device)
+        none = (args[0], args[1], torch.zeros_like(args[2]), args[3])
+        for fn in (kops.window_join, kops.window_join_count):
+            for a, what in ((args, "mixed ops"), (none, "all-op-0 stack")):
+                if not torch.equal(fn(*a), fn(*a, backend="ref")):
+                    raise AssertionError(f"{fn.__name__} kernel != plain "
+                                         f"at {(k, c, m, b)} ({what})")
+        if kops.window_join_count(*none).tolist() != [m * b] * k:
+            raise AssertionError(f"all-op-0 count != M*B at {(k, c, m, b)}")
+    print(f"   bit-identical to the plain versions at {len(shapes)} packed, "
+          f"{len(shapes)} rowcount and {len(shapes)} join/count shapes (all "
+          "op codes, ties, negative thresholds, all-none stacks; all-op-0 "
+          "counts == M*B)")
 
     records = {}
     p_args = packed_inputs(gen, K_MAIN, c_packed, M_CAP, B_CAP, device)
     r_args = rowcount_inputs(gen, K_MAIN, c_rowcount, M_CAP, B_CAP, device)
+    u_args = unpacked_inputs(gen, *tree_shape, device)
     for name, fn, args, bound in (
             ("window_join_packed", kops.window_join_packed, p_args,
              packed_bound),
             ("window_join_rowcount", kops.window_join_rowcount, r_args,
-             rowcount_bound)):
+             rowcount_bound),
+            ("window_join", kops.window_join, u_args, join_bound),
+            ("window_join_count", kops.window_join_count, u_args,
+             count_bound)):
         got = fn(*args)
         want = fn(*args, backend="ref")
         err = float((got.to(torch.int64) - want.to(torch.int64))
@@ -244,38 +320,85 @@ def check_kernels(device, c_packed, c_rowcount):
 # ---------------------------------------------------------------------------
 
 
-def run_main(device, backend=None):
+def path_config(plan, **kw):
+    """The session configuration of a path: the same capacities for both
+    plan families; tree plans add their invariant caps and escalation
+    limit."""
+    from repro_torch.cep import RuntimeConfig
+
+    if plan == "tree":
+        kw = dict(TREE_CAPS, max_escalations=TREE_MAX_ESCALATIONS, **kw)
+    return RuntimeConfig(**kw)
+
+
+def run_main(device, backend=None, plan="order"):
+    """The full-width path through ``cep.open(...).run``; returns the
+    telemetry, the wall seconds and the peak device memory (bytes)."""
     import torch
 
     from repro_torch import cep
-    from repro_torch.cep import RuntimeConfig
 
-    cfg = RuntimeConfig(buffer_capacity=B_CAP, match_capacity=M_CAP,
-                        chunk_capacity=CHUNK_CAP, device=device,
-                        backend=backend)
-    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan="order",
+    cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
+                      chunk_capacity=CHUNK_CAP, device=device,
+                      backend=backend)
+    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
     data = streams(K_MAIN, CHUNKS_MAIN, BASE_RATE, CHUNK_CAP)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     tel = sess.run(data)
     torch.cuda.synchronize()
-    return tel, time.perf_counter() - t
+    return tel, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
-def profile_main(n_chunks=16, top=12):
-    """Where the main path's time goes: the first ``n_chunks`` chunks
-    under ``torch.profiler``; prints the device-busy share of the wall
-    time and the ops with the most device self time."""
+def check_path(plan):
+    """Drives one path with the launch counters zeroed just before and
+    read just after, then reruns it with the plain versions; returns the
+    launch counts."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    tel, secs, peak = run_main("cuda", plan=plan)
+    launches = dict(kops.LAUNCHES)
+    for name in PATH_KERNELS[plan]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{plan} path never launched {name}")
+    print(f"   plan={plan} K={K_MAIN} FlowSense rule, base_rate="
+          f"{BASE_RATE}, b_cap={B_CAP}, m_cap={M_CAP}: {tel.events} events "
+          f"in {secs:.3f} s = {tel.events / secs:.1f} events/s, peak "
+          f"device memory {peak / 2 ** 30:.3f} GiB")
+    print("   " + ", ".join(f"{f}={getattr(tel, f)}" for f in INT_FIELDS))
+    print(f"   kernel launches on the {plan} path: {launches}")
+    kops.reset_launch_counts()
+    ref_tel, ref_secs, ref_peak = run_main("cuda", backend="ref", plan=plan)
+    if any(kops.LAUNCHES.values()):
+        raise AssertionError("backend='ref' launched a kernel")
+    for f in INT_FIELDS:
+        if getattr(tel, f) != getattr(ref_tel, f):
+            raise AssertionError(f"{f}: kernels {getattr(tel, f)} != "
+                                 f"plain {getattr(ref_tel, f)}")
+    if tel.per_partition_matches.tolist() != \
+            ref_tel.per_partition_matches.tolist():
+        raise AssertionError("per-partition matches differ from plain run")
+    print(f"   plain-version rerun on the card: equal integer telemetry "
+          f"({ref_secs:.3f} s = {ref_tel.events / ref_secs:.1f} events/s, "
+          f"peak device memory {ref_peak / 2 ** 30:.3f} GiB)")
+    return launches
+
+
+def profile_main(plan="order", n_chunks=16, top=12):
+    """Where a path's time goes: its first ``n_chunks`` chunks under
+    ``torch.profiler``; prints the device-busy share of the wall time and
+    the ops with the most device self time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import cep
-    from repro_torch.cep import RuntimeConfig
 
-    cfg = RuntimeConfig(buffer_capacity=B_CAP, match_capacity=M_CAP,
-                        chunk_capacity=CHUNK_CAP, device="cuda")
-    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan="order",
+    cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
+                      chunk_capacity=CHUNK_CAP, device="cuda")
+    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
     data = streams(K_MAIN, n_chunks, BASE_RATE, CHUNK_CAP)
     torch.cuda.synchronize()
@@ -291,7 +414,8 @@ def profile_main(n_chunks=16, top=12):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    print(f"   profiled {n_chunks} chunks: wall {wall:.3f} s, device busy "
+    print(f"   profiled {n_chunks} chunks of the {plan} path: wall "
+          f"{wall:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f}% of wall)")
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:top]:
@@ -299,16 +423,16 @@ def profile_main(n_chunks=16, top=12):
               f"calls {e.count:6d}  {e.key[:70]}")
 
 
-def check_oracle(device):
+def check_oracle(device, plan="order"):
     """K=4 narrow stream on the card vs the brute-force oracle."""
     from repro_torch import cep
-    from repro_torch.cep import RefEngine, RuntimeConfig
+    from repro_torch.cep import RefEngine
 
     k, n_chunks, rate, cap = 4, 24, 12.0, 64
-    cfg = RuntimeConfig(buffer_capacity=64, match_capacity=1024,
-                        chunk_capacity=cap, device=device)
+    cfg = path_config(plan, buffer_capacity=64, match_capacity=1024,
+                      chunk_capacity=cap, device=device)
     pattern = flowsense_rule()
-    tel = cep.open(pattern, partitions=k, plan="order", monitor=True,
+    tel = cep.open(pattern, partitions=k, plan=plan, monitor=True,
                    config=cfg).run(streams(k, n_chunks, rate, cap, seed=100))
     want = [RefEngine(pattern.build()).run(s)
             for s in streams(k, n_chunks, rate, cap, seed=100)]
@@ -318,7 +442,8 @@ def check_oracle(device):
                              f"{[r.full_matches for r in want]}")
     if tel.neg_rejected != sum(r.neg_rejected for r in want):
         raise AssertionError("oracle neg_rejected mismatch")
-    print(f"   K={k} b_cap=64: matches {got} == oracle, neg_rejected "
+    print(f"   plan={plan} K={k} b_cap=64: matches {got} == oracle, "
+          "neg_rejected "
           f"{tel.neg_rejected} == oracle, replans {tel.replans}")
 
 
@@ -329,7 +454,6 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core.engine import make_spec, packed_row_count
-    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import window_join
 
     t_all = time.perf_counter()
@@ -359,49 +483,35 @@ def main() -> int:
     c_packed = packed_row_count(make_spec(pattern))
     # Negation veto rows: 2 validity + 2 window + 2 order anchors.
     c_rowcount = 6
-    records = check_kernels("cuda", c_packed, c_rowcount)
+    # Tree join rows: 2 validity + 2 window + 1 order + 2 per predicate.
+    c_join = 2 + 2 + 1 + 2 * len(make_spec(pattern).pred_pairs)
+    records = check_kernels("cuda", c_packed, c_rowcount, c_join)
     done("kernels", t)
 
-    t = phase("main path")
-    kops.reset_launch_counts()
-    tel, secs = run_main("cuda")
-    launches = dict(kops.LAUNCHES)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path never launched {name}")
-    print(f"   K={K_MAIN} FlowSense rule, base_rate={BASE_RATE}, "
-          f"b_cap={B_CAP}, m_cap={M_CAP}: {tel.events} events in "
-          f"{secs:.3f} s = {tel.events / secs:.1f} events/s")
-    print("   " + ", ".join(f"{f}={getattr(tel, f)}" for f in INT_FIELDS))
-    print(f"   kernel launches on the main path: {launches}")
-    kops.reset_launch_counts()
-    ref_tel, ref_secs = run_main("cuda", backend="ref")
-    if any(kops.LAUNCHES.values()):
-        raise AssertionError("backend='ref' launched a kernel")
-    for f in INT_FIELDS:
-        if getattr(tel, f) != getattr(ref_tel, f):
-            raise AssertionError(f"{f}: kernels {getattr(tel, f)} != "
-                                 f"plain {getattr(ref_tel, f)}")
-    if tel.per_partition_matches.tolist() != \
-            ref_tel.per_partition_matches.tolist():
-        raise AssertionError("per-partition matches differ from plain run")
-    print(f"   plain-version rerun on the card: equal integer telemetry "
-          f"({ref_secs:.3f} s = {ref_tel.events / ref_secs:.1f} events/s)")
-    done("main path", t)
+    launches = {}
+    for plan in ("order", "tree"):
+        t = phase(f"main path, plan={plan}")
+        launches[plan] = check_path(plan)
+        done(f"main path, plan={plan}", t)
 
-    t = phase("oracle")
-    check_oracle("cuda")
-    done("oracle", t)
+        t = phase(f"oracle, plan={plan}")
+        check_oracle("cuda", plan)
+        done(f"oracle, plan={plan}", t)
 
-    t = phase("profile")
-    profile_main()
-    done("profile", t)
+        t = phase(f"profile, plan={plan}")
+        profile_main(plan)
+        done(f"profile, plan={plan}", t)
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
+    # ``launches`` sums a kernel's launches over the paths' runs; the
+    # split is in ``launches_by_path``.
     kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
+                    replaces=REPLACES[name],
+                    launches=sum(n[name] for n in launches.values()),
+                    launches_by_path={p: n[name]
+                                      for p, n in launches.items()},
                     library_ms=None, **records[name])
-               for name in ("window_join_packed", "window_join_rowcount")]
+               for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -1,17 +1,20 @@
 """The CEP runtime facade of the port: one ``Session``, everything else
 config.
 
-    session = cep.open(pattern, partitions=K, plan="order" | "auto",
+    session = cep.open(pattern, partitions=K,
+                       plan="order" | "tree" | "auto",
                        monitor=True | False,
                        config=RuntimeConfig(device="cuda", ...))
     telemetry = session.run(streams)
 
 * ``partitions``: K = 1 is a fleet of one — the data plane is always the
   K-batched fleet executor.
-* ``plan``: the plan family.  "auto" compares the two planners' cold-start
-  costs under the uniform prior, exactly as the JAX package does; this
-  slice of the port runs order plans, so "tree" (or an "auto" that
-  resolves to tree) raises ``NotImplementedError``.
+* ``plan``: the plan family — "order" (greedy planner, order engine),
+  "tree" (ZStream planner, tree engine) or "auto", which compares the two
+  planners' cold-start costs under the uniform prior, exactly as the JAX
+  package does, and runs the cheaper.  Monitored tree sessions need
+  explicit ``max_invariants``/``max_terms`` (the ZStream invariant set's
+  size depends on the statistics).
 * ``monitor``: ``False`` keeps the decision policy on the host (statistics
   sampled per chunk), ``True`` fuses the statistics rings and lowered
   invariant sets into the device step (host work ∝ violations).
@@ -215,12 +218,8 @@ class Session:
             return
         self.branches = ()
         self.plan_kind = _resolve_plan_kind(self.pattern, plan)
-        if self.plan_kind != "order":
-            raise NotImplementedError(
-                f"plan={plan!r} resolves to tree plans; the port's tree "
-                "engine comes in a later slice (Queue 1 item 6 of "
-                "ROADMAP.md) — use plan='order'")
-        self.planner_name = "greedy"
+        self.planner_name = ("greedy" if self.plan_kind == "order"
+                             else "zstream")
         self._runner = None  # batch-plane runner, kept for run(resume=True)
 
     @property
@@ -303,9 +302,10 @@ def open(pattern, *, partitions: int = 1, plan: str = "auto",
                 a ``CompositePattern``.
     partitions: K independent stream partitions sharing one batched data
                 plane (K = 1 is a fleet of one).
-    plan:       "order" (greedy planner) or "auto" (cheaper cold-start
-                cost under the uniform prior; must resolve to order in
-                this slice).
+    plan:       "order" (left-deep permutations, greedy planner), "tree"
+                (ZStream-style join trees, dynamic-programming planner),
+                or "auto" (the cheaper cold-start cost under the uniform
+                prior).
     monitor:    ``True`` fuses statistics rings + lowered invariant
                 verification into the device step; ``False`` evaluates the
                 decision policy on the host each chunk.

@@ -1,29 +1,29 @@
-"""Vectorized CEP evaluation engine (data plane) in PyTorch, order plans.
+"""Vectorized CEP evaluation engine (data plane) in PyTorch.
 
-The port of ``repro.core.engine``'s order-plan half.  The data structures
-are the reference's, with the fleet's K partition axis written out as the
-leading dimension of every tensor (where the reference vmaps one
-partition's function):
+The port of ``repro.core.engine``: order plans (lazy-NFA style) and tree
+plans (ZStream style).  The data structures are the reference's, with the
+fleet's K partition axis written out as the leading dimension of every
+tensor (where the reference vmaps one partition's function):
 
 * **Per-type ring buffers** hold the recent stream history
   (struct-of-arrays, fixed capacity, masked): ``Buffers`` of ``(K, T, B)``.
 * **Match sets are dense masked tensors**: ``(K, M_cap, n)`` timestamps and
   attributes, a validity mask and a per-partition position membership.
 * **Every plan step is one masked windowed cross-join** of ``C`` constraint
-  rows between ``M`` partial matches and ``B`` candidate events — the
-  packed CUDA kernel on the card, its plain version on the CPU — followed by
-  a fixed-size compaction.
+  rows between ``M`` partial matches and ``B`` candidate events — a CUDA
+  kernel on the card (packed for order plans, unpacked for tree plans),
+  its plain version on the CPU — followed by a fixed-size compaction.
 
-Plans are data: an order plan enters as a ``(K, n)`` row matrix, so every
-partition runs its own plan through the same calls and a replan never
-changes a shape.  Chunked semantics are the reference's: a match is counted
-exactly once, in the chunk where its latest event arrives
-(``max_ts ∈ (t0, t1]``).  Negation is a post-join anti-filter against the
-negated type's buffer and Kleene closure a bounded companion count, both
-through the rowcount kernel.
+Plans are data: an order plan enters as a ``(K, n)`` row matrix, a tree
+plan as a ``(K, n-1, 2)`` slot-join matrix, so every partition runs its
+own plan through the same calls and a replan never changes a shape.
+Chunked semantics are the reference's: a match is counted exactly once, in
+the chunk where its latest event arrives (``max_ts ∈ (t0, t1]``).
+Negation is a post-join anti-filter against the negated type's buffer and
+Kleene closure a bounded companion count, both through the rowcount
+kernel.
 
-Every ``StepResult`` counter is int32, as in the reference.  The tree
-engine comes in a later slice.
+Every ``StepResult`` counter is int32, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch
 
 from ..kernels import ops as kops
 from .patterns import PRED_GT, PRED_LT, PRED_NONE, Pattern
-from .plans import OrderPlan
+from .plans import TreeNode, TreePlan
 
 _LT = PRED_LT
 _GT = PRED_GT
@@ -127,13 +127,23 @@ def _row_values(x, shape, device):
     return torch.full(shape, float(x), dtype=torch.float32, device=device)
 
 
+def _row_ops(op, k, device):
+    if isinstance(op, torch.Tensor):
+        return op.to(torch.int32)
+    return torch.full((k,), int(op), dtype=torch.int32, device=device)
+
+
 def _rows_to_stacks(rows, k, m, b, device):
     """rows: list of (lvals (K, M) | scalar, rvals (K, B) | scalar, op,
-    theta) with static op/theta -> (K, C, M), (K, C, B), (K, C) i32, (C,)."""
+    theta), op a static int or a per-partition (K,) tensor, theta static
+    -> (K, C, M), (K, C, B), (K, C) i32, (C,)."""
     L = torch.stack([_row_values(r[0], (k, m), device) for r in rows], dim=1)
     R = torch.stack([_row_values(r[1], (k, b), device) for r in rows], dim=1)
-    ops_ = _const(tuple(int(r[2]) for r in rows), torch.int32,
-                  device).expand(k, -1).contiguous()
+    if any(isinstance(r[2], torch.Tensor) for r in rows):
+        ops_ = torch.stack([_row_ops(r[2], k, device) for r in rows], dim=1)
+    else:
+        ops_ = _const(tuple(int(r[2]) for r in rows), torch.int32,
+                      device).expand(k, -1).contiguous()
     ths = _const(tuple(float(r[3]) for r in rows), torch.float32, device)
     return L, R, ops_, ths
 
@@ -151,6 +161,21 @@ def _window_rows(l_min, l_max, r_min, r_max, window):
         (l_max, r_min, _LT, float(window)),
         (l_min, r_max, _GT, float(window)),
     ]
+
+
+def _pred_rows(spec, L: MatchSet, R: MatchSet):
+    """Two orientation rows per static predicate pair; each row's op is
+    per partition, live only where ``a`` is in L's membership and ``b`` in
+    R's (the reference's ``jnp.where(active, op_t, NONE)``)."""
+    rows = []
+    for (p, q) in spec.pred_pairs:
+        for (a, b_) in ((p, q), (q, p)):
+            active = L.member[:, a] & R.member[:, b_]
+            op = torch.where(active, int(spec.op_t[a, b_]), _NONE)
+            lv = L.attr[:, :, a, int(spec.a_attr_t[a, b_])]
+            rv = R.attr[:, :, b_, int(spec.b_attr_t[a, b_])]
+            rows.append((lv, rv, op, spec.theta_t[a, b_]))
+    return rows
 
 
 def _gather_rows(x, idx):
@@ -199,6 +224,23 @@ def _compact(L: MatchSet, R: MatchSet, ok, out_cap: int):
     )
     overflow = torch.clamp(pm_created - out_cap, min=0).to(torch.int32)
     return out, pm_created, overflow
+
+
+def _join(spec, cfg, L: MatchSet, R: MatchSet, order_rows,
+          out_cap: int):
+    """One tree step: the unpacked constraint cross-join + compaction.
+    ``pm_created`` is the compaction's running count (no second sum)."""
+    k, m = L.valid.shape
+    b = R.valid.shape[1]
+    rows = (
+        _validity_rows(L.valid, R.valid)
+        + _window_rows(L.min_ts, L.max_ts, R.min_ts, R.max_ts, spec.window)
+        + order_rows
+        + _pred_rows(spec, L, R)
+    )
+    Ls, Rs, ops_, ths = _rows_to_stacks(rows, k, m, b, L.valid.device)
+    ok = kops.window_join(Ls, Rs, ops_, ths, backend=cfg.backend)
+    return _compact(L, R, ok, out_cap)
 
 
 def _row_counts(cfg, rows, k, m, b, device):
@@ -518,25 +560,53 @@ def build_order_strips(spec: _Spec, order) -> PredicateStrips:
 
 
 # ---------------------------------------------------------------------------
-# Order-based engine (lazy-NFA style)
+# The shared engine base; the order-based engine (lazy-NFA style)
 # ---------------------------------------------------------------------------
 
 
-class OrderEngine:
-    """Executes order-based plans for K partitions at once; the (K, n)
-    order-row matrix is an argument, so plans change without new shapes."""
+class _Engine:
+    """What both plan families share: the pattern's spec, the config, the
+    device, the state and the single-stream convenience.  A subclass maps
+    a plan to its row (``plan_row``), a stacked row matrix to the device
+    operands (``plan_operands``) and runs one chunk (``process``)."""
 
     def __init__(self, pattern: Pattern, cfg: EngineConfig = EngineConfig()):
         self.pattern = pattern
         self.spec = make_spec(pattern)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+
+    def init_state(self, k: int = 1) -> Buffers:
+        return init_buffers(self.spec, self.cfg, k, self.device)
+
+    def process_chunk(self, buffers: Buffers, chunk: Chunk, plan,
+                      t0: float, t1: float, born_lo: float = NEG_INF,
+                      born_hi: float = POS_INF):
+        """Single-stream convenience (K = 1): unbatched chunk arrays, one
+        plan; the buffers keep their leading K = 1 axis and the counters
+        come back as (1,) tensors."""
+        dev = self.device
+        chunk = Chunk(*(torch.as_tensor(np.asarray(x), device=dev)[None]
+                        for x in chunk))
+        scalar = [torch.tensor([v], dtype=torch.float32, device=dev)
+                  for v in (t0, t1, born_lo, born_hi)]
+        return self.process(buffers, chunk,
+                            self.plan_operands(self.plan_row(plan)), *scalar)
+
+
+class OrderEngine(_Engine):
+    """Executes order-based plans for K partitions at once; the (K, n)
+    order-row matrix is an argument, so plans change without new shapes."""
+
+    def __init__(self, pattern: Pattern, cfg: EngineConfig = EngineConfig()):
+        super().__init__(pattern, cfg)
         self._thetas = torch.as_tensor(_packed_thetas(self.spec),
                                        device=self.device)
         self._pred_cols = _pred_cols(self.spec)
 
-    def init_state(self, k: int = 1) -> Buffers:
-        return init_buffers(self.spec, self.cfg, k, self.device)
+    @staticmethod
+    def plan_row(plan) -> np.ndarray:
+        return np.asarray(plan.order, np.int32)
 
     def plan_operands(self, rows) -> PlanOperands:
         """Stacked strips for a (K, n) row matrix (or one (n,) row, K = 1),
@@ -594,19 +664,110 @@ class OrderEngine:
         return buffers, StepResult(full, pm_total, overflow, closure,
                                    neg_rej)
 
-    def process_chunk(self, buffers: Buffers, chunk: Chunk, plan: OrderPlan,
-                      t0: float, t1: float, born_lo: float = NEG_INF,
-                      born_hi: float = POS_INF):
-        """Single-stream convenience (K = 1): unbatched chunk arrays, one
-        ``OrderPlan``; the buffers keep their leading K = 1 axis and the
-        counters come back as (1,) tensors."""
-        dev = self.device
-        chunk = Chunk(*(torch.as_tensor(np.asarray(x), device=dev)[None]
-                        for x in chunk))
-        scalar = [torch.tensor([v], dtype=torch.float32, device=dev)
-                  for v in (t0, t1, born_lo, born_hi)]
-        return self.process(buffers, chunk, self.plan_operands(plan.order),
-                            *scalar)
+
+# ---------------------------------------------------------------------------
+# Tree-based engine (ZStream style)
+# ---------------------------------------------------------------------------
+
+
+def tree_plan_to_slots(plan: TreePlan) -> np.ndarray:
+    """Convert a TreePlan into an (n-1, 2) slot-join program.
+
+    Slots 0..n-1 are the leaves (pattern positions); slot n+s is the result
+    of join step s.  The interval DP guarantees every node's left child
+    covers the earlier contiguous interval, which the tree engine's single
+    cross-order constraint relies on for sequence patterns.
+    """
+    n = plan.n
+    steps = []
+
+    def walk(node: TreeNode) -> int:
+        if node.is_leaf:
+            return node.leaf
+        li = walk(node.left)
+        ri = walk(node.right)
+        # Contiguity + ordering sanity (host-side).
+        ll, rl = node.left.leaves(), node.right.leaves()
+        leaves = sorted(ll + rl)
+        assert leaves == list(range(leaves[0], leaves[-1] + 1)), (
+            "tree engine requires contiguous-interval plans")
+        assert max(ll) < min(rl), "left child must cover earlier interval"
+        sid = n + len(steps)
+        steps.append((li, ri))
+        return sid
+
+    walk(plan.root)
+    return np.asarray(steps, np.int32).reshape(len(steps), 2)
+
+
+class TreeEngine(_Engine):
+    """Executes tree-based plans for K partitions at once; the
+    (K, n-1, 2) slot-join matrix is an argument, so plans change without
+    new shapes."""
+
+    plan_row = staticmethod(tree_plan_to_slots)
+
+    def plan_operands(self, rows) -> torch.Tensor:
+        """A (K, n-1, 2) slot matrix (or one (n-1, 2) program, K = 1) on
+        the engine's device."""
+        rows = np.asarray(rows, np.int64)
+        if rows.ndim == 2:
+            rows = rows[None]
+        return torch.as_tensor(rows, device=self.device)
+
+    def process(self, buffers: Buffers, chunk: Chunk, steps: torch.Tensor,
+                t0, t1, born_lo, born_hi) -> Tuple[Buffers, StepResult]:
+        """One chunk for K partitions: ingest, n leaves, n-1 slot joins,
+        finalize.  ``steps`` is the (K, n-1, 2) slot matrix; the other
+        arguments are as in ``OrderEngine.process``."""
+        spec, cfg = self.spec, self.cfg
+        n, m = spec.n, cfg.m_cap
+        k = steps.shape[0]
+        dev = steps.device
+        buffers = _ingest(spec, cfg, buffers, chunk)
+        leaves = [_leaf(spec, cfg, buffers,
+                        torch.full((k,), p, dtype=torch.long, device=dev),
+                        t0, m) for p in range(n)]
+
+        # Stacked slots (K, 2n-1, ...): leaves first, then one per join
+        # step, zeroed (empty, no members) until the step writes it.
+        def stack(xs):
+            out = torch.zeros((k, 2 * n - 1) + xs[0].shape[1:],
+                              dtype=xs[0].dtype, device=dev)
+            out[:, :n] = torch.stack(xs, dim=1)
+            return out
+
+        slots = MatchSet(*(stack(xs) for xs in zip(*leaves)))
+        # Leaf cardinalities count as materialized state (ZStream cost).
+        pm_total = sum(leaf.valid.sum(dim=1, dtype=torch.int32)
+                       for leaf in leaves)
+        overflow = torch.zeros_like(pm_total)
+        kidx = torch.arange(k, device=dev)
+        pm = leaves[0]
+        for s in range(n - 1):  # static loop; slot gathers are per partition
+            L = MatchSet(*(x[kidx, steps[:, s, 0]] for x in slots))
+            R = MatchSet(*(x[kidx, steps[:, s, 1]] for x in slots))
+            rows = [(L.max_ts, R.min_ts, _LT, 0.0)] if spec.is_seq else []
+            pm, created, ov = _join(spec, cfg, L, R, rows, m)
+            pm_total = pm_total + created
+            overflow = overflow + ov
+            # The reference rebuilds the slot stack with .at[n + s].set;
+            # the port writes the step's slot in place.
+            for x, new in zip(slots, pm):
+                x[:, n + s] = new
+        full, neg_rej, closure = _finalize(
+            spec, cfg, buffers, pm, t0, t1, born_lo, born_hi)
+        return buffers, StepResult(full, pm_total, overflow, closure,
+                                   neg_rej)
+
+
+def _make_engine(kind: str, pattern: Pattern,
+                 cfg: EngineConfig = EngineConfig()):
+    if kind == "order":
+        return OrderEngine(pattern, cfg)
+    if kind == "tree":
+        return TreeEngine(pattern, cfg)
+    raise ValueError(f"unknown engine kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------

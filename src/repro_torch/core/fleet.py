@@ -1,12 +1,13 @@
 """Partitioned fleet executor: K independent streams, one batched plane.
 
-The port of ``repro.core.fleet`` for order plans.  The paper's adaptation
-loop (§2.2, Algorithm 1) runs per partition, while the data plane runs
-all K partitions through the same calls: every tensor of the engine leads
-with the partition axis, each partition carries its own plan row and its
-own ``born_lo/born_hi`` migration window, and a replan of partition ``p``
-writes one row of the stacked plan matrix (and, when device-monitored,
-one row of the stacked invariant tensors) — never a new shape.
+The port of ``repro.core.fleet``, for order and tree plans.  The paper's
+adaptation loop (§2.2, Algorithm 1) runs per partition, while the data
+plane runs all K partitions through the same calls: every tensor of the
+engine leads with the partition axis, each partition carries its own
+plan row and its own ``born_lo/born_hi`` migration window, and a replan of
+partition ``p`` writes one row of the stacked plan matrix (and, when
+device-monitored, one row of the stacked invariant tensors) — never a new
+shape.
 
 Two control planes drive it:
 
@@ -21,8 +22,8 @@ Two control planes drive it:
 
 Differential guarantee: every counter equals the JAX package's fleet and
 the brute-force oracle (``ref_engine``); see ``tests/test_torch_fleet.py``
-and ``tests/test_torch_session.py``.  Tree plans, the superchunk scan and
-the device mesh come in later slices.
+and ``tests/test_torch_session.py``.  The superchunk scan and the device
+mesh come in later slices.
 """
 
 from __future__ import annotations
@@ -38,11 +39,10 @@ import torch
 from .adaptation import make_planner
 from .decision import DecisionPolicy, InvariantPolicy
 from .engine import (NEG_INF, POS_INF, Buffers, Chunk, EngineConfig,
-                     OrderEngine, PlanOperands, StepResult,
-                     make_monitored_process)
+                     StepResult, _make_engine, make_monitored_process)
 from .invariants import LoweredInvariants, StackedLowered
 from .patterns import Pattern
-from .plans import OrderPlan
+from .plans import OrderPlan, TreePlan
 from .stats import (MonitorState, Stat, fleet_monitor_init,
                     sample_selectivities, uniform_stat)
 
@@ -91,12 +91,15 @@ def stacked_streams(streams: Sequence[Iterable]) -> Iterable[FleetChunk]:
 
 
 class FleetEngine:
-    """K partitions through one K-batched ``OrderEngine.process``.
+    """K partitions through one K-batched ``OrderEngine.process`` or
+    ``TreeEngine.process``.
 
-    Plans may differ per partition (a stacked row matrix); the pattern and
-    the capacities are shared.  Host chunk arrays are moved to the
-    engine's device on each call; the strips of a plan matrix are derived
-    once and cached while the matrix is deployed.
+    ``kind`` selects the plan family ("order" | "tree").  Plans may differ
+    per partition (a stacked row matrix); the pattern and the capacities
+    are shared.  Host chunk arrays are moved to the engine's device on each
+    call; a plan matrix's device operands (an order matrix's strips, a tree
+    matrix's slot program) are built once and cached while the matrix is
+    deployed, so a deployed plan costs no host-to-device copy per chunk.
     """
 
     _OPERANDS_CAP = 8
@@ -104,11 +107,7 @@ class FleetEngine:
     def __init__(self, kind: str, pattern: Pattern, k: int,
                  cfg: EngineConfig = EngineConfig(),
                  monitor_laplace: float = 1.0):
-        if kind != "order":
-            raise NotImplementedError(
-                f"plan kind {kind!r}: the port runs order plans; the tree "
-                "engine comes in a later slice")
-        self.base = OrderEngine(pattern, cfg)
+        self.base = _make_engine(kind, pattern, cfg)
         self.kind = kind
         self.pattern = pattern
         self.cfg = cfg
@@ -116,7 +115,7 @@ class FleetEngine:
         self.device = self.base.device
         self.monitor_laplace = monitor_laplace
         self._mprocess = None
-        self._operands: "OrderedDict[bytes, PlanOperands]" = OrderedDict()
+        self._operands: "OrderedDict[bytes, object]" = OrderedDict()
 
     # -- state -------------------------------------------------------------
 
@@ -131,20 +130,22 @@ class FleetEngine:
     # -- plan stacking -----------------------------------------------------
 
     def plan_row(self, plan) -> np.ndarray:
-        """A single plan as its row of the stacked plan matrix."""
-        return np.asarray(plan.order, np.int32)
+        """A single plan as its row of the stacked plan matrix: an order
+        vector (n,) or a tree's slot program (n-1, 2)."""
+        return self.base.plan_row(plan)
 
     def plans_to_array(self, plans) -> np.ndarray:
-        """One plan (broadcast) or a length-K sequence -> (K, n) rows."""
+        """One plan (broadcast) or a length-K sequence -> (K, n) order rows
+        or (K, n-1, 2) slot programs."""
         if isinstance(plans, np.ndarray):
             return plans
-        if isinstance(plans, OrderPlan):
+        if isinstance(plans, (OrderPlan, TreePlan)):
             plans = [plans] * self.k
         if len(plans) != self.k:
             raise ValueError(f"expected {self.k} plans, got {len(plans)}")
         return np.stack([self.plan_row(p) for p in plans])
 
-    def plan_operands(self, plans) -> PlanOperands:
+    def plan_operands(self, plans):
         rows = np.ascontiguousarray(self.plans_to_array(plans), np.int32)
         key = rows.tobytes()
         ops = self._operands.get(key)

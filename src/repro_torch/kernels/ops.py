@@ -8,11 +8,11 @@
   comparison run of ``chip_smoke.py``).
 * ``backend="cuda"`` on a CPU tensor raises.
 
-The engine calls these through one ``backend`` field of its config, so the
-whole data plane switches with one flag.  The CUDA kernels take a leading
-fleet axis K (``(K, C, M)``); the plain versions take it or not.  The JAX
-package's ``REPRO_KERNEL_BACKEND`` environment override keeps its JAX
-meaning and is not read here.
+The engines call these through one ``backend`` field of their config, so
+the whole data plane switches with one flag.  The CUDA kernels take a
+leading fleet axis K (``(K, C, M)``); the plain versions take it or not.
+The JAX package's ``REPRO_KERNEL_BACKEND`` environment override keeps its
+JAX meaning and is not read here.
 """
 
 from __future__ import annotations
@@ -53,3 +53,19 @@ def window_join_rowcount(L, R, ops, thetas, *,
     if resolve_backend(backend, L) == "ref":
         return _ref.window_join_rowcount_ref(L, R, ops, thetas)
     return _wj.window_join_rowcount_cuda(L, R, ops, thetas)
+
+
+def window_join(L, R, ops, thetas, *, backend: Optional[str] = None):
+    """ok[m, b] = AND_c cmp(op[c], L[c, m], R[c, b], theta[c]) — (..., M, B)
+    bool; the tree engine's join."""
+    if resolve_backend(backend, L) == "ref":
+        return _ref.window_join_ref(L, R, ops, thetas)
+    return _wj.window_join_cuda(L, R, ops, thetas)
+
+
+def window_join_count(L, R, ops, thetas, *, backend: Optional[str] = None):
+    """Count of matching pairs without materializing the mask — a 0-d
+    int32 without a fleet axis (the plain version only), (K,) with one."""
+    if resolve_backend(backend, L) == "ref":
+        return _ref.window_join_count_ref(L, R, ops, thetas)
+    return _wj.window_join_count_cuda(L, R, ops, thetas)

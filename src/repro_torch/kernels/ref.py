@@ -66,13 +66,14 @@ def window_join_packed_ref(L, R, ops8, thetas, mvalid, bvalid):
     return acc
 
 
-def window_join_rowcount_ref(L, R, ops, thetas):
-    """Per-m surviving-pair counts: cnt[m] = sum_b AND_c row_c[m, b].
+def window_join_ref(L, R, ops, thetas):
+    """ok[m, b] = AND over constraint rows — (..., M, B) bool.
 
-    The dense AND of ``cmp_op`` rows summed over b, loop-accumulated so no
-    (C, M, B) stack is materialized.  Feeds the negation veto
-    (cnt > 0) and Kleene companion counts (cnt - 1) of the engine's
-    finalize pass.  Returns (..., M) int32.
+    L: (..., C, M) f32, R: (..., C, B) f32, ops: (..., C) i32, thetas:
+    (C,) or (..., C) f32.  The reference stacks the ``(C, M, B)`` rows of
+    ``cmp_op`` and takes ``all`` over C; here the AND is loop-accumulated
+    over C (an AND is exact in any order), so the working set stays one
+    ``(..., M, B)`` plane at the fleet's full width.
     """
     M, B = L.shape[-1], R.shape[-1]
     acc = torch.ones(L.shape[:-2] + (M, B), dtype=torch.bool,
@@ -81,4 +82,20 @@ def window_join_rowcount_ref(L, R, ops, thetas):
         ok = cmp_op(_row(ops, c), L[..., c, :, None], R[..., c, None, :],
                     _row(thetas, c))
         acc = acc & ok
-    return acc.sum(dim=-1, dtype=torch.int32)
+    return acc
+
+
+def window_join_count_ref(L, R, ops, thetas):
+    """Total matching (m, b) pairs: the sum of ``window_join_ref``'s mask
+    — a 0-d int32 without a batch axis, (...,) int32 with one."""
+    return window_join_ref(L, R, ops, thetas).sum(dim=(-2, -1),
+                                                  dtype=torch.int32)
+
+
+def window_join_rowcount_ref(L, R, ops, thetas):
+    """Per-m surviving-pair counts: cnt[m] = sum_b AND_c row_c[m, b].
+
+    Feeds the negation veto (cnt > 0) and Kleene companion counts
+    (cnt - 1) of the engine's finalize pass.  Returns (..., M) int32.
+    """
+    return window_join_ref(L, R, ops, thetas).sum(dim=-1, dtype=torch.int32)

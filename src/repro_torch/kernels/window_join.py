@@ -6,7 +6,7 @@ cross-evaluation of ``C`` constraint rows between ``M`` partial matches and
 
     ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[c]).
 
-Two kernels, written by hand for Hopper in ``csrc/window_join.cu``:
+Four kernels, written by hand for Hopper in ``csrc/window_join.cu``:
 
 * ``window_join_packed_cuda`` replaces ``window_join_packed_pallas``: the
   order engine's join step, validity as two uint8 vectors, ``(K, M, B)``
@@ -14,6 +14,12 @@ Two kernels, written by hand for Hopper in ``csrc/window_join.cu``:
 * ``window_join_rowcount_cuda`` replaces ``window_join_rowcount_pallas``:
   per-row counts ``(K, M)`` int32 for the negation veto and the Kleene
   count; the mask is never stored.
+* ``window_join_cuda`` replaces ``window_join_pallas``: the tree engine's
+  join step, validity as two ordinary f32 rows, ``(K, M, B)`` bool mask
+  out.
+* ``window_join_count_cuda`` replaces ``window_join_count_pallas``: the
+  total of that mask per partition, ``(K,)`` int32; the mask is never
+  stored.
 
 Build.  The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, under
@@ -56,7 +62,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launch counts per kernel, bumped only where a kernel is launched.
 LAUNCHES: Dict[str, int] = {"window_join_packed": 0,
-                            "window_join_rowcount": 0}
+                            "window_join_rowcount": 0,
+                            "window_join": 0,
+                            "window_join_count": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -114,8 +122,9 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.wj_packed.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.wj_packed.restype = i32
-        lib.wj_rowcount.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-        lib.wj_rowcount.restype = i32
+        for fn in (lib.wj_rowcount, lib.wj_join, lib.wj_count):
+            fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+            fn.restype = i32
         lib.wj_error_string.argtypes = [i32]
         lib.wj_error_string.restype = ctypes.c_char_p
         lib.wj_max_c.argtypes = []
@@ -152,7 +161,8 @@ def _dims(L, R):
     if C > lib.wj_max_c():
         raise ValueError(f"C={C} constraint rows exceed the kernel's "
                          f"limit of {lib.wj_max_c()}")
-    if max(K, M, B) >= 2 ** 31 or K >= 65536:
+    # grid.z holds K; grid.x the (4, 128) cell tiles of the widest grid.
+    if K >= 65536 or -(-M // 4) * -(-B // 128) >= 2 ** 31:
         raise ValueError(f"shape (K={K}, M={M}, B={B}) exceeds the grid")
     return lib, (K, C, M, B)
 
@@ -193,25 +203,61 @@ def window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid):
     return out.view(torch.bool)
 
 
-def window_join_rowcount_cuda(L, R, ops, thetas):
-    """cnt[k, m] = sum_b AND_c cmp(...) — (K, M) int32.
-
-    L: (K, C, M) f32, R: (K, C, B) f32, ops: (K, C) int32, thetas: (C,)
-    f32; all contiguous on one CUDA device.
-    """
+def _unpacked(L, R, ops, thetas):
+    """Checks the unpacked operands: L (K, C, M) f32, R (K, C, B) f32,
+    ops (K, C) int32, thetas (C,) f32, all contiguous on one CUDA device.
+    Returns the library and (K, C, M, B)."""
     lib, (K, C, M, B) = _dims(L, R)
     dev = L.device
     _check("L", L, torch.float32, (K, C, M), dev)
     _check("R", R, torch.float32, (K, C, B), dev)
     _check("ops", ops, torch.int32, (K, C), dev)
     _check("thetas", thetas, torch.float32, (C,), dev)
-    out = torch.empty((K, M), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out
+    return lib, (K, C, M, B)
+
+
+def _launch(lib, fn, name, L, R, ops, thetas, out, dims):
+    """Launches ``fn`` on the current stream of ``out``'s device."""
+    dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.wj_rowcount(L.data_ptr(), R.data_ptr(), ops.data_ptr(),
-                             thetas.data_ptr(), out.data_ptr(), K, C, M, B,
-                             stream)
-    _launched(rc, lib, "window_join_rowcount")
+        rc = fn(L.data_ptr(), R.data_ptr(), ops.data_ptr(),
+                thetas.data_ptr(), out.data_ptr(), *dims, stream)
+    _launched(rc, lib, name)
+
+
+def window_join_rowcount_cuda(L, R, ops, thetas):
+    """cnt[k, m] = sum_b AND_c cmp(...) — (K, M) int32."""
+    lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
+    out = torch.empty((K, M), dtype=torch.int32, device=L.device)
+    if out.numel() == 0:
+        return out
+    _launch(lib, lib.wj_rowcount, "window_join_rowcount", L, R, ops, thetas,
+            out, (K, C, M, B))
+    return out
+
+
+def window_join_cuda(L, R, ops, thetas):
+    """ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], th[c]) —
+    (K, M, B) bool."""
+    lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
+    out = torch.empty((K, M, B), dtype=torch.uint8, device=L.device)
+    if out.numel() == 0:
+        return out.view(torch.bool)
+    _launch(lib, lib.wj_join, "window_join", L, R, ops, thetas, out,
+            (K, C, M, B))
+    return out.view(torch.bool)
+
+
+def window_join_count_cuda(L, R, ops, thetas):
+    """cnt[k] = sum_{m, b} AND_c cmp(...) — (K,) int32, without storing
+    the mask."""
+    lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
+    if M * B >= 2 ** 31:
+        raise ValueError(f"M*B = {M * B} pairs overflow the int32 count")
+    out = torch.zeros((K,), dtype=torch.int32, device=L.device)
+    if K == 0 or M * B == 0:
+        return out
+    _launch(lib, lib.wj_count, "window_join_count", L, R, ops, thetas, out,
+            (K, C, M, B))
     return out

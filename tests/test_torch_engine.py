@@ -1,13 +1,15 @@
-"""The port's order engine against the JAX package's, on the CPU.
+"""The port's order and tree engines against the JAX package's, on the CPU.
 
-Every case feeds the same seeded stream, cut into chunks, through JAX
-``OrderEngine.process_chunk`` and the port's ``OrderEngine.process_chunk``
-(the plain kernel versions on the CPU).  All five ``StepResult`` counters
-and the ring buffers must be equal after every chunk, and the full-match
-totals must equal the brute-force oracle.  The cases are those of
-``tests/test_engine.py`` and ``tests/test_differential.py``: SEQ in any
-order, AND, negation at every position, Kleene with and without a bound,
-a four-position pattern, and one case whose match set overflows.
+Every case feeds the same seeded stream, cut into chunks, through the JAX
+engine's ``process_chunk`` and the port's (the plain kernel versions on
+the CPU).  All five ``StepResult`` counters and the ring buffers must be
+equal after every chunk, and the full-match totals must equal the
+brute-force oracle.  The cases are those of ``tests/test_engine.py`` and
+``tests/test_differential.py``: for order plans SEQ in any order, AND,
+negation at every position, Kleene with and without a bound, a
+four-position pattern and one case whose match set overflows; for tree
+plans the three shapes of a four-position tree, the left-deep sweep over
+n, negation, Kleene and an overflow.
 """
 
 import jax.numpy as jnp
@@ -122,6 +124,134 @@ def test_order_engine_matches_jax(name, build, order, n_types, n_events,
     assert totals[0] == oracle.full_matches
     assert totals[4] == oracle.neg_rejected
     assert totals[3] == oracle.closure_expansions
+
+
+def _tree(m, spec):
+    """A TreePlan from a nested tuple of leaves, e.g. ((0, 1), 2)."""
+    def node(x):
+        if isinstance(x, int):
+            return m.TreeNode(leaf=x)
+        return m.TreeNode(left=node(x[0]), right=node(x[1]))
+    return m.TreePlan(node(spec))
+
+
+def _seq4_tree(m, tree):
+    return m.seq_pattern([0, 1, 2, 3], 25.0,
+                         m.chain_predicates([0, 1, 2, 3], theta=0.2))
+
+
+def _seq_n(n):
+    def build(m, tree):
+        return m.seq_pattern(list(range(n)), 20.0,
+                             m.chain_predicates(list(range(n)), theta=0.2))
+    return build
+
+
+def _left_deep(n):
+    spec = 0
+    for p in range(1, n):
+        spec = (spec, p)
+    return spec
+
+
+# (name, pattern builder, tree, n_types, n_events, b_cap, m_cap)
+TREE_CASES = [
+    ("tree-balanced", _seq4_tree, ((0, 1), (2, 3)), 4, 48, 64, 1024),
+    ("tree-right-deep", _seq4_tree, (0, (1, (2, 3))), 4, 48, 64, 1024),
+    ("tree-left-deep", _seq4_tree, (((0, 1), 2), 3), 4, 48, 64, 1024),
+    ("left-deep-n2", _seq_n(2), _left_deep(2), 2, 24, 128, 4096),
+    ("left-deep-n3", _seq_n(3), _left_deep(3), 3, 36, 128, 4096),
+    ("left-deep-n4", _seq_n(4), _left_deep(4), 4, 48, 128, 4096),
+    ("tree-neg-pos1", _neg(1, "PRED_ABS_LE"), (0, 1), 3, 60, 64, 512),
+    ("tree-kleene", _kleene(None), (0, (1, 2)), 3, 45, 64, 2048),
+    ("tree-and", _and, ((0, 1), 2), 3, 50, 64, 1024),
+    ("tree-overflow", _overflow, (0, 1), 2, 120, 64, 64),
+]
+
+
+@pytest.mark.parametrize("name,build,tree,n_types,n_events,b_cap,m_cap",
+                         TREE_CASES, ids=[c[0] for c in TREE_CASES])
+def test_tree_engine_matches_jax(name, build, tree, n_types, n_events,
+                                 b_cap, m_cap, rng):
+    """Chunks are padded to one length with invalid events, so the JAX
+    engine compiles once per case and the padding path is exercised."""
+    tid, ts, attr = gen_stream(rng, n_types, n_events)
+    jeng_ = jeng.TreeEngine(build(jpat, tree),
+                            jeng.EngineConfig(b_cap=b_cap, m_cap=m_cap))
+    tpattern = build(tpat, tree)
+    teng_ = teng.TreeEngine(tpattern, teng.EngineConfig(
+        b_cap=b_cap, m_cap=m_cap, device="cpu"))
+    jstate, tstate = jeng_.init_state(), teng_.init_state()
+    totals = np.zeros(5, np.int64)
+    for t0, t1 in zip(EDGES[:-1], EDGES[1:]):
+        m = np.nonzero((ts > t0) & (ts <= t1))[0]
+        idx = np.concatenate([m, np.zeros(n_events - len(m), np.int64)])
+        valid = np.arange(n_events) < len(m)
+        chunk = (tid[idx], ts[idx], attr[idx], valid)
+        jstate, jres = jeng_.process_chunk(
+            jstate, jeng.Chunk(*map(jnp.asarray, chunk)),
+            _tree(jplans, tree), t0, t1)
+        tstate, tres = teng_.process_chunk(
+            tstate, teng.Chunk(*chunk), _tree(tplans, tree), t0, t1)
+        for f in teng.StepResult._fields:
+            got = getattr(tres, f)
+            assert got.dtype == teng.torch.int32 and got.shape == (1,)
+            assert int(got[0]) == int(getattr(jres, f)), (f, t0)
+        for f in teng.Buffers._fields:
+            want = np.asarray(getattr(jstate, f))
+            got = getattr(tstate, f)[0].numpy()
+            assert got.dtype == want.dtype and np.array_equal(got, want), f
+        totals += [int(getattr(tres, f)[0]) for f in teng.StepResult._fields]
+    if name == "tree-overflow":
+        assert totals[2] > 0  # the capacity really truncated
+        return
+    oracle = brute_force_matches(tpattern, tid, ts, attr, 0.0, 100.0)
+    assert totals[0] == oracle.full_matches
+    assert totals[4] == oracle.neg_rejected
+    assert totals[3] == oracle.closure_expansions
+
+
+def test_order_and_tree_engines_agree(rng):
+    """The two plan families find the same matches on one stream (and the
+    same as the JAX order/tree pair), with different join work."""
+    def pat(m):
+        return m.seq_pattern([0, 1, 2, 3], 25.0,
+                             m.chain_predicates([0, 1, 2, 3], theta=0.4))
+
+    tid, ts, attr = gen_stream(rng, 4, 60)
+    chunk = (tid, ts, attr, np.ones(len(ts), bool))
+    cfg = teng.EngineConfig(b_cap=64, m_cap=2048, device="cpu")
+    oe, te = teng.OrderEngine(pat(tpat), cfg), teng.TreeEngine(pat(tpat), cfg)
+    _, r1 = oe.process_chunk(oe.init_state(), teng.Chunk(*chunk),
+                             tplans.OrderPlan((3, 2, 1, 0)), 0.0, 200.0)
+    tree = ((0, 1), (2, 3))
+    _, r2 = te.process_chunk(te.init_state(), teng.Chunk(*chunk),
+                             _tree(tplans, tree), 0.0, 200.0)
+    jte = jeng.TreeEngine(pat(jpat), jeng.EngineConfig(b_cap=64, m_cap=2048))
+    _, jr2 = jte.process_chunk(jte.init_state(),
+                               jeng.Chunk(*map(jnp.asarray, chunk)),
+                               _tree(jplans, tree), 0.0, 200.0)
+    assert int(r1.full_matches[0]) == int(r2.full_matches[0]) == \
+        int(jr2.full_matches) > 0
+    assert int(r2.pm_created[0]) == int(jr2.pm_created)
+    assert int(r1.pm_created[0]) != int(r2.pm_created[0])
+
+
+def test_tree_plan_to_slots_matches_jax():
+    """Every contiguous tree over four positions gives the reference's
+    slot program; a non-contiguous or out-of-order tree is refused."""
+    trees = [((0, 1), (2, 3)), (0, (1, (2, 3))), (((0, 1), 2), 3),
+             ((0, (1, 2)), 3), (0, ((1, 2), 3))]
+    for tree in trees:
+        want = jeng.tree_plan_to_slots(_tree(jplans, tree))
+        got = teng.tree_plan_to_slots(_tree(tplans, tree))
+        assert got.dtype == want.dtype and np.array_equal(got, want), tree
+    for bad in (((0, 2), (1, 3)), ((1, 0), (2, 3))):
+        with pytest.raises(AssertionError):
+            teng.tree_plan_to_slots(_tree(tplans, bad))
+    with pytest.raises(ValueError, match="unknown engine kind"):
+        teng._make_engine("nfa", _seq4_tree(tpat, None),
+                          teng.EngineConfig(device="cpu"))
 
 
 def test_order_strips_match_jax():

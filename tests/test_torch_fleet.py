@@ -2,11 +2,13 @@
 
 The same seeded per-partition streams, plan rows and lowered invariant
 rows go through JAX ``FleetEngine.process_chunk_monitored`` and the
-port's.  Counters, violation flags, ``rates`` and ``sel`` must be equal,
-and so must the ring buffers and the statistics rings; ``drift`` (a
-ratio of float sums and products) is held to ``rtol=1e-6``.  One test
-runs JAX for a few chunks, carries its state into the port with
-``repro_torch.core.convert`` and continues both.
+port's, for order plans and for tree plans (a different tree per
+partition, lowered ZStream invariants).  Counters, violation flags,
+``rates`` and ``sel`` must be equal, and so must the ring buffers and the
+statistics rings; ``drift`` (a ratio of float sums and products) is held
+to ``rtol=1e-6``.  The plain (unmonitored) tree step is held the same way.
+Two tests run JAX for a few chunks, carry its state into the port with
+``repro_torch.core.convert`` and continue both.
 """
 
 import jax.numpy as jnp
@@ -17,6 +19,9 @@ import repro.core.fleet as jfleet
 from repro.cep import P as JP
 from repro.core.greedy import greedy_order_plan as j_greedy
 from repro.core.decision import InvariantPolicy as JInvariantPolicy
+from repro.core.plans import TreeNode as JTreeNode
+from repro.core.plans import TreePlan as JTreePlan
+from repro.core.zstream import zstream_tree_plan as j_zstream
 from repro.data.cep_streams import StreamConfig as JStreamConfig
 from repro.data.cep_streams import make_stream as j_make_stream
 from repro_torch.cep import P as TP
@@ -25,6 +30,8 @@ from repro_torch.core import fleet as tfleet
 from repro_torch.core.decision import InvariantPolicy
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.greedy import greedy_order_plan
+from repro_torch.core.plans import TreeNode, TreePlan
+from repro_torch.core.zstream import zstream_tree_plan
 from repro_torch.data.cep_streams import StreamConfig, make_stream
 
 
@@ -52,25 +59,28 @@ def _chunks(k, n_types, seed=5):
     return list(tfleet.stacked_streams(recs))
 
 
-def _engines(rule, k, b_cap=32, m_cap=256):
-    jf = jfleet.FleetEngine("order", rule(JP).build(), k,
+def _engines(rule, k, b_cap=32, m_cap=256, kind="order"):
+    jf = jfleet.FleetEngine(kind, rule(JP).build(), k,
                             jfleet.EngineConfig(b_cap=b_cap, m_cap=m_cap))
-    tf = tfleet.FleetEngine("order", rule(TP).build(), k,
+    tf = tfleet.FleetEngine(kind, rule(TP).build(), k,
                             EngineConfig(b_cap=b_cap, m_cap=m_cap,
                                          device="cpu"))
     return jf, tf
 
 
-def _lowered(k):
-    """Identical lowered invariant rows from both packages' cold start."""
+def _lowered(k, kind="order"):
+    """Identical lowered invariant rows from both packages' cold start,
+    with the greedy planner (order) or the ZStream planner (tree)."""
+    jplanner, tplanner = ((j_greedy, greedy_order_plan) if kind == "order"
+                          else (j_zstream, zstream_tree_plan))
     jplan, jlow, _ = jfleet.prime_invariant_policies(
-        seq_rule(JP).build(), j_greedy,
+        seq_rule(JP).build(), jplanner,
         [JInvariantPolicy(k=1, d=0.0) for _ in range(k)], CAPS)
     tplan, tlow, _ = tfleet.prime_invariant_policies(
-        seq_rule(TP).build(), greedy_order_plan,
+        seq_rule(TP).build(), tplanner,
         [InvariantPolicy(k=1, d=0.0) for _ in range(k)], CAPS,
         device="cpu")
-    assert jplan.order == tplan.order
+    assert str(jplan) == str(tplan)
     for a, b in zip(jlow.host, tlow.host):
         assert np.array_equal(np.asarray(a), b)
     return jlow, tlow
@@ -184,10 +194,103 @@ def test_streams_copy_gives_the_same_arrays():
                 assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
+def _trees(k, node_cls, plan_cls):
+    """K three-position trees, alternating ((0, 1), 2) and (0, (1, 2))."""
+    N = node_cls
+    shapes = (N(left=N(left=N(leaf=0), right=N(leaf=1)), right=N(leaf=2)),
+              N(left=N(leaf=0), right=N(left=N(leaf=1), right=N(leaf=2))))
+    return [plan_cls(shapes[p % 2]) for p in range(k)]
+
+
+@pytest.mark.parametrize("monitored,k", [(True, 1), (True, 4), (False, 1),
+                                         (False, 4)],
+                         ids=["monitored-k1", "monitored-k4", "plain-k1",
+                              "plain-k4"])
+def test_tree_fleet_step_matches_jax(monitored, k):
+    """``FleetEngine("tree", ...)`` with a different tree per partition:
+    every output of each chunk equals the JAX tree fleet's."""
+    jf, tf = _engines(seq_rule, k, kind="tree")
+    jtrees, ttrees = _trees(k, JTreeNode, JTreePlan), _trees(k, TreeNode,
+                                                             TreePlan)
+    rows = tf.plans_to_array(ttrees)
+    assert np.array_equal(rows, np.asarray(jf.plans_to_array(jtrees)))
+    born_lo = np.where(np.arange(k) % 2 == 1, 2.0, -3.0e38).astype(
+        np.float32)
+    jlow, tlow = _lowered(k, kind="tree")
+    jstate = (jf.init_state(), jf.init_monitor(8))
+    tstate = (tf.init_state(), tf.init_monitor(8))
+    pm = 0
+    for fc in _chunks(k, 3):
+        if monitored:
+            jout, tout = _step_both(jf, tf, jstate, tstate, fc, rows,
+                                    jlow.device(), tlow.device(), born_lo)
+            _compare(jout, tout)
+            jstate, tstate = jout[:2], tout[:2]
+        else:
+            jchunk = jfleet.Chunk(*map(jnp.asarray, fc.chunk))
+            jbuf, jres = jf.process_chunk(jstate[0], jchunk, jtrees, fc.t0,
+                                          fc.t1, born_lo=born_lo)
+            tbuf, tres = tf.process_chunk(tstate[0], fc.chunk, ttrees,
+                                          fc.t0, fc.t1, born_lo=born_lo)
+            for f in tres._fields:
+                assert np.array_equal(getattr(tres, f).numpy(),
+                                      np.asarray(getattr(jres, f))), f
+            for want, got in zip(jbuf, tbuf):
+                assert np.array_equal(got.numpy(), np.asarray(want))
+            jstate, tstate = (jbuf, jstate[1]), (tbuf, tstate[1])
+            tout = (tbuf, None, tres)
+        pm += int(tout[2].pm_created.sum())
+    assert pm > 0
+    # The slot program of a deployed plan matrix is uploaded once.
+    assert tf.plan_operands(ttrees) is tf.plan_operands(ttrees)
+
+
 def test_fleet_engine_rejects_tree_plans():
-    with pytest.raises(NotImplementedError, match="tree engine"):
-        tfleet.FleetEngine("tree", seq_rule(TP).build(), 2,
+    """The tree fleet takes ZStream-shaped trees only: a tree whose
+    children are not contiguous earlier/later intervals, or a plan list
+    of the wrong length, is refused before anything runs."""
+    tf = tfleet.FleetEngine("tree", seq_rule(TP).build(), 2,
+                            EngineConfig(device="cpu"))
+    N = TreeNode
+    swapped = TreePlan(N(left=N(left=N(leaf=1), right=N(leaf=0)),
+                         right=N(leaf=2)))
+    gapped = TreePlan(N(left=N(left=N(leaf=0), right=N(leaf=2)),
+                        right=N(leaf=1)))
+    for bad in (swapped, gapped):
+        with pytest.raises(AssertionError):
+            tf.plans_to_array(bad)
+    with pytest.raises(ValueError, match="expected 2 plans"):
+        tf.plans_to_array(_trees(3, TreeNode, TreePlan))
+    with pytest.raises(ValueError, match="unknown engine kind"):
+        tfleet.FleetEngine("nfa", seq_rule(TP).build(), 2,
                            EngineConfig(device="cpu"))
+
+
+def test_carry_jax_tree_fleet_into_port():
+    """A JAX tree fleet's buffers, monitor rings and lowered ZStream
+    invariants, converted after three chunks, continue in the port with
+    every output equal."""
+    k = 4
+    jf, tf = _engines(seq_rule, k, kind="tree")
+    jlow, _ = _lowered(k, kind="tree")
+    jtrees, ttrees = _trees(k, JTreeNode, JTreePlan), _trees(k, TreeNode,
+                                                             TreePlan)
+    rows = tf.plans_to_array(ttrees)
+    chunks = _chunks(k, 3, seed=9)
+    jstate = (jf.init_state(), jf.init_monitor(8))
+    for fc in chunks[:3]:
+        jchunk = jfleet.Chunk(*map(jnp.asarray, fc.chunk))
+        jstate = jf.process_chunk_monitored(
+            jstate[0], jstate[1], jchunk, jtrees, jlow.device(), fc.t0,
+            fc.t1)[:2]
+    tstate = (convert.buffers_to_torch(jstate[0], "cpu"),
+              convert.monitor_to_torch(jstate[1], "cpu"))
+    tlow = convert.lowered_to_torch(jlow.host, "cpu")
+    for fc in chunks[3:]:
+        jout, tout = _step_both(jf, tf, jstate, tstate, fc, rows,
+                                jlow.device(), tlow, -3.0e38)
+        _compare(jout, tout)
+        jstate, tstate = jout[:2], tout[:2]
 
 
 def test_stacked_lowered_patches_one_row_in_place():

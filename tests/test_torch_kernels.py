@@ -2,12 +2,13 @@
 
 The plain PyTorch versions (``repro_torch.kernels.ref``) must be
 bit-identical to the JAX references and to the Pallas kernels run in
-interpret mode, over the cases of ``tests/test_packed_kernels.py``: op
-codes 0-3, C up to 32, M and B that are not tile multiples, zero-padded
-validity, all-none op stacks, and values on a coarse grid so that ties
-(``l == r + theta``) occur.  The CUDA kernels themselves run only on a
-GPU: ``test_cuda_kernels_match_plain`` carries the ``gpu`` marker and
-skips here.
+interpret mode, over the cases of ``tests/test_packed_kernels.py`` and
+``tests/test_kernels.py``: op codes 0-3, C up to 32, M and B that are not
+tile multiples, the Pallas block grids, zero-padded validity, negative
+thresholds, all-none op stacks (the pair count must not count padding),
+and values on a coarse grid so that ties (``l == r + theta``) occur.  The
+CUDA kernels themselves run only on a GPU: the ``gpu``-marked tests skip
+here.
 """
 
 import numpy as np
@@ -15,8 +16,11 @@ import pytest
 import torch
 
 from repro.kernels.ref import window_join_packed_ref as jax_packed_ref
+from repro.kernels.ref import window_join_ref as jax_join_ref
 from repro.kernels.ref import window_join_rowcount_ref as jax_rowcount_ref
-from repro.kernels.window_join import (window_join_packed_pallas,
+from repro.kernels.window_join import (window_join_count_pallas,
+                                       window_join_packed_pallas,
+                                       window_join_pallas,
                                        window_join_rowcount_pallas)
 from repro_torch.kernels import ops, ref, window_join
 
@@ -102,6 +106,46 @@ def test_rowcount_all_none_ops_counts_true_extent(rng):
     assert (got == B).all()
 
 
+@pytest.mark.parametrize("C,M,B,bm,bb", [
+    (3, 130, 140, 8, 128), (3, 130, 140, 128, 128), (3, 130, 140, 256, 128),
+    (1, 1, 1, 8, 128), (9, 257, 129, 128, 128), (32, 64, 300, 8, 128),
+])
+def test_unpacked_plain_matches_jax(C, M, B, bm, bb, rng):
+    """The tree engine's join and the pair count, with the block grids of
+    ``tests/test_packed_kernels.py`` and thresholds of either sign."""
+    L, R, op, _, _, _ = _case(rng, C, M, B)
+    th = _coarse(rng, (C,))  # negative thresholds included
+    want_ref = np.asarray(jax_join_ref(L, R, op, th))
+    want_int = np.asarray(window_join_pallas(L, R, op, th, block_m=bm,
+                                             block_b=bb, interpret=True))
+    got = ref.window_join_ref(*_t(L, R, op, th)).numpy()
+    assert got.dtype == np.bool_ and got.shape == (M, B)
+    assert (got == want_ref).all()
+    assert (got == want_int).all()
+    assert (ops.window_join(*_t(L, R, op, th)).numpy() == want_ref).all()
+    cnt = ref.window_join_count_ref(*_t(L, R, op, th))
+    assert cnt.dtype == torch.int32 and cnt.shape == ()
+    want_cnt = int(window_join_count_pallas(L, R, op, th, block_m=bm,
+                                            block_b=bb, interpret=True))
+    assert int(cnt) == want_cnt == int(want_ref.sum())
+    assert int(ops.window_join_count(*_t(L, R, op, th))) == want_cnt
+
+
+@pytest.mark.parametrize("C,M,B", [(2, 130, 140), (1, 9, 129), (3, 257, 5)])
+def test_count_plain_padding_exact_all_ops(C, M, B, rng):
+    """The cases of ``tests/test_kernels.py``: a stack of op-0 rows counts
+    exactly M*B, and a mixed stack equals the interpret-mode kernel."""
+    L, R, _, _, _, _ = _case(rng, C, M, B)
+    zeros = np.zeros(C, np.int32), np.zeros(C, np.float32)
+    got = ref.window_join_count_ref(*_t(L, R, *zeros))
+    want = int(window_join_count_pallas(L, R, *zeros, interpret=True))
+    assert int(got) == want == M * B
+    op = rng.integers(0, 4, size=C).astype(np.int32)
+    th = _coarse(rng, (C,))
+    want = int(window_join_count_pallas(L, R, op, th, interpret=True))
+    assert int(ref.window_join_count_ref(*_t(L, R, op, th))) == want
+
+
 def test_batched_plain_versions_equal_per_partition_loop(rng):
     """A leading K axis (the fleet) changes nothing per partition; ops
     differ per partition, thresholds are shared."""
@@ -113,11 +157,17 @@ def test_batched_plain_versions_equal_per_partition_loop(rng):
     op8 = op.astype(np.int8)
     packed = ref.window_join_packed_ref(*_t(L, R, op8, th, mv, bv)).numpy()
     counts = ref.window_join_rowcount_ref(*_t(L, R, op, th)).numpy()
+    joined = ref.window_join_ref(*_t(L, R, op, th)).numpy()
+    totals = ref.window_join_count_ref(*_t(L, R, op, th))
+    assert totals.dtype == torch.int32 and totals.shape == (K,)
     for k in range(K):
         assert (packed[k] == np.asarray(jax_packed_ref(
             L[k], R[k], op8[k], th, mv[k], bv[k]))).all()
         assert (counts[k] == np.asarray(jax_rowcount_ref(
             L[k], R[k], op[k], th))).all()
+        want = np.asarray(jax_join_ref(L[k], R[k], op[k], th))
+        assert (joined[k] == want).all()
+        assert int(totals[k]) == int(want.sum())
 
 
 def test_dispatch_rules(rng):
@@ -125,17 +175,27 @@ def test_dispatch_rules(rng):
     before = dict(ops.LAUNCHES)
     ops.window_join_packed(L, R, op.to(torch.int8), th, mv, bv)
     ops.window_join_rowcount(L, R, op, th, backend="ref")
+    ops.window_join(L, R, op, th)
+    ops.window_join_count(L, R, op, th, backend="ref")
     assert ops.LAUNCHES == before  # the plain versions launch nothing
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.window_join_packed(L, R, op.to(torch.int8), th, mv, bv,
                                backend="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.window_join_rowcount(L, R, op, th, backend="cuda")
+    for fn in (ops.window_join, ops.window_join_count):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(L, R, op, th, backend="cuda")
     with pytest.raises(ValueError, match="unknown kernel backend"):
         ops.window_join_rowcount(L, R, op, th, backend="pallas")
-    # The CUDA wrapper refuses a CPU tensor before it builds anything.
-    with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
-        window_join.window_join_rowcount_cuda(L[None], R[None], op[None], th)
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        ops.window_join(L, R, op, th, backend="interpret")
+    # The CUDA wrappers refuse a CPU tensor before they build anything.
+    for fn in (window_join.window_join_rowcount_cuda,
+               window_join.window_join_cuda,
+               window_join.window_join_count_cuda):
+        with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
+            fn(L[None], R[None], op[None], th)
     assert ops.LAUNCHES == before
 
 
@@ -148,7 +208,8 @@ def test_kernel_module_imports_without_nvcc():
     assert window_join.BUILD_DIR.parts[-2:] == ("build",
                                                 "repro_torch_kernels")
     assert set(window_join.LAUNCHES) == {"window_join_packed",
-                                         "window_join_rowcount"}
+                                         "window_join_rowcount",
+                                         "window_join", "window_join_count"}
 
 
 @pytest.fixture
@@ -174,3 +235,21 @@ def test_cuda_kernels_match_plain(C, M, B, cuda_device, rng):
     assert torch.equal(ops.window_join_rowcount(L, R, op, th),
                        ops.window_join_rowcount(L, R, op, th,
                                                 backend="ref"))
+    assert torch.equal(ops.window_join(L, R, op, th),
+                       ops.window_join(L, R, op, th, backend="ref"))
+    assert torch.equal(ops.window_join_count(L, R, op, th),
+                       ops.window_join_count(L, R, op, th, backend="ref"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,M,B", [(3, 1000, 333), (1, 257, 1030)])
+def test_cuda_count_all_none_ops_counts_true_extent(C, M, B, cuda_device,
+                                                    rng):
+    """Cells past the true extents never count: an op-0 stack at ragged
+    extents totals exactly M*B per partition."""
+    K = 2
+    L = torch.from_numpy(_coarse(rng, (K, C, M))).to(cuda_device)
+    R = torch.from_numpy(_coarse(rng, (K, C, B))).to(cuda_device)
+    op = torch.zeros((K, C), dtype=torch.int32, device=cuda_device)
+    th = torch.zeros((C,), dtype=torch.float32, device=cuda_device)
+    assert ops.window_join_count(L, R, op, th).tolist() == [M * B] * K

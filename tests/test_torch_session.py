@@ -1,13 +1,14 @@
 """``repro_torch.cep.open(...).run`` against ``repro.cep.open(...).run``.
 
-On the order-plan rows of the ``tests/test_session.py`` grid (monitor on
-and off, K in {1, 4}, per-chunk stepping), every integer field of the
+On the per-chunk rows of the ``tests/test_session.py`` grid (order and
+tree plans, monitor on and off, K in {1, 4}), every integer field of the
 port's ``Telemetry`` must equal the reference's, ``last_drift`` is held to
 ``rtol=1e-6``, and the runners' ``FleetMetrics.pm_created`` (join work)
 must be equal too.  Further runs cover a flag-triggered replan, overflow
-escalation (with de-escalation on deploy), and a stream split across
-``run(..., resume=True)``.  A subprocess checks that importing the port
-loads neither jax nor any module of the JAX package.
+escalation (with de-escalation on deploy), a ``plan="auto"`` that
+resolves to tree, and streams split across ``run(..., resume=True)``.  A
+subprocess checks that importing the port loads neither jax nor any
+module of the JAX package.
 """
 
 import dataclasses
@@ -73,10 +74,10 @@ def assert_same_telemetry(got, want):
                                    rtol=1e-6)
 
 
-def run_both(monitor, k, config=CONFIG, seed=11, scfg=SCFG):
-    want = jcep.open(rule(JP), partitions=k, plan="order", monitor=monitor,
+def run_both(monitor, k, config=CONFIG, seed=11, scfg=SCFG, plan="order"):
+    want = jcep.open(rule(JP), partitions=k, plan=plan, monitor=monitor,
                      config=JConfig(**config)).run(jstreams(k, seed, scfg))
-    got = cep.open(rule(P), partitions=k, plan="order", monitor=monitor,
+    got = cep.open(rule(P), partitions=k, plan=plan, monitor=monitor,
                    config=RuntimeConfig(device="cpu", **config)).run(
         streams(k, seed, scfg))
     assert_same_telemetry(got, want)
@@ -95,8 +96,20 @@ def test_session_grid_matches_jax(monitor, k):
         assert tel.host_syncs == tel.violations
 
 
-@pytest.mark.parametrize("monitor", [False, True])
-def test_runner_join_work_matches_jax(monitor):
+@pytest.mark.parametrize("monitor,k", [(False, 1), (False, 4), (True, 1),
+                                       (True, 4)])
+def test_tree_session_grid_matches_jax(monitor, k):
+    """The tree rows of the grid: ZStream planner, tree engine."""
+    tel = run_both(monitor, k, plan="tree")
+    oracle = [RefEngine(rule(P).build()).run(s).full_matches
+              for s in streams(k)]
+    assert tel.per_partition_matches.tolist() == oracle
+    assert tel.chunks == SCFG["n_chunks"]
+    if monitor:
+        assert tel.host_syncs == tel.violations
+
+
+def _runner_join_work(monitor, planner):
     """``FleetMetrics.pm_created`` (and every other counter) of the
     runners behind the sessions, built with the same knobs."""
     k = 4
@@ -105,22 +118,25 @@ def test_runner_join_work_matches_jax(monitor):
         warnings.simplefilter("ignore", DeprecationWarning)
         if monitor:
             legacy = jfleet.MonitoredFleetRunner(
-                pattern_j, k, policy_factory=lambda: JInvariantPolicy(),
+                pattern_j, k, planner=planner,
+                policy_factory=lambda: JInvariantPolicy(),
                 engine_cfg=JEngineConfig(b_cap=64, m_cap=1024),
                 max_inv=8, max_terms=16)
         else:
             legacy = jfleet.FleetRunner(
-                pattern_j, k, policy_factory=lambda: j_make_policy(
-                    "invariant"),
+                pattern_j, k, planner=planner,
+                policy_factory=lambda: j_make_policy("invariant"),
                 engine_cfg=JEngineConfig(b_cap=64, m_cap=1024))
     cfg = EngineConfig(b_cap=64, m_cap=1024, device="cpu")
     if monitor:
         port = fleet.MonitoredFleetRunner(
-            pattern_t, k, policy_factory=lambda: InvariantPolicy(),
+            pattern_t, k, planner=planner,
+            policy_factory=lambda: InvariantPolicy(),
             engine_cfg=cfg, max_inv=8, max_terms=16)
     else:
         port = fleet.FleetRunner(
-            pattern_t, k, policy_factory=lambda: make_policy("invariant"),
+            pattern_t, k, planner=planner,
+            policy_factory=lambda: make_policy("invariant"),
             engine_cfg=cfg)
     want = legacy.run(jfleet.stacked_streams(jstreams(k)))
     got = port.run(fleet.stacked_streams(streams(k)))
@@ -132,6 +148,17 @@ def test_runner_join_work_matches_jax(monitor):
     assert got.pm_created > 0
     assert got.per_partition_deployments.tolist() == \
         want.per_partition_deployments.tolist()
+    assert port.fleet.kind == ("order" if planner == "greedy" else "tree")
+
+
+@pytest.mark.parametrize("monitor", [False, True])
+def test_runner_join_work_matches_jax(monitor):
+    _runner_join_work(monitor, "greedy")
+
+
+@pytest.mark.parametrize("monitor", [False, True])
+def test_tree_runner_join_work_matches_jax(monitor):
+    _runner_join_work(monitor, "zstream")
 
 
 def test_flag_triggered_replans_match_jax():
@@ -154,21 +181,29 @@ def test_escalation_matches_jax():
     assert tel.escalations > 0
 
 
-def test_resume_split_matches_jax_and_one_run():
+def _resume_split(plan):
     k = 4
-    jsess = jcep.open(rule(JP), partitions=k, plan="order", monitor=True,
+    jsess = jcep.open(rule(JP), partitions=k, plan=plan, monitor=True,
                       config=JConfig(**CONFIG))
-    tsess = cep.open(rule(P), partitions=k, plan="order", monitor=True,
+    tsess = cep.open(rule(P), partitions=k, plan=plan, monitor=True,
                      config=RuntimeConfig(device="cpu", **CONFIG))
     jfc = list(jfleet.stacked_streams(jstreams(k)))
     tfc = list(fleet.stacked_streams(streams(k)))
     for lo, hi, resume in ((0, 6, False), (6, 10, True)):
         assert_same_telemetry(tsess.run(tfc[lo:hi], resume=resume),
                               jsess.run(jfc[lo:hi], resume=resume))
-    whole = cep.open(rule(P), partitions=k, plan="order", monitor=True,
+    whole = cep.open(rule(P), partitions=k, plan=plan, monitor=True,
                      config=RuntimeConfig(device="cpu", **CONFIG)).run(tfc)
     assert tsess.telemetry().matches == whole.matches
     assert tsess.telemetry().replans == whole.replans
+
+
+def test_resume_split_matches_jax_and_one_run():
+    _resume_split("order")
+
+
+def test_tree_resume_split_matches_jax_and_one_run():
+    _resume_split("tree")
 
 
 def test_plan_resolution_and_deferred_features():
@@ -182,13 +217,56 @@ def test_plan_resolution_and_deferred_features():
         assert _resolve_plan_kind(build(P).build(), "auto") == \
             j_resolve(build(JP).build(), "auto")
     cfg = RuntimeConfig(device="cpu")
-    with pytest.raises(NotImplementedError, match="tree"):
-        cep.open(rule(P), plan="tree", config=cfg)
+    # plan="tree" runs the ZStream planner on the tree engine, as the
+    # reference does.
+    tsess = cep.open(rule(P), plan="tree", config=cfg)
+    jsess = jcep.open(rule(JP), plan="tree", config=JConfig())
+    assert (tsess.plan_kind, tsess.planner_name) == \
+        (jsess.plan_kind, jsess.planner_name) == ("tree", "zstream")
+    assert_same_telemetry(tsess.run(streams(1)), jsess.run(jstreams(1)))
     with pytest.raises(NotImplementedError, match="superchunk"):
         cep.open(rule(P), plan="order", config=cfg, superchunk=4)
     with pytest.raises(NotImplementedError, match="mesh"):
         cep.open(rule(P), plan="order", config=cfg, mesh="auto")
     assert RuntimeConfig().device == "cuda"
+
+
+def test_auto_resolving_to_tree_matches_jax(monkeypatch):
+    """``plan="auto"`` runs whatever it resolves to.  Under the uniform
+    prior it always resolves to order (every prefix cardinality is at most
+    1, so the order cost is at most n, below the tree's n leaves plus its
+    joins); a skewed cold-start prior, patched into both packages alike,
+    makes the ZStream tree cheaper, and the session then runs tree plans
+    exactly as the reference does."""
+    import repro.cep.session as jsession
+    import repro_torch.cep.session as tsession
+    from repro.core.stats import Stat as JStat
+    from repro_torch.core.stats import Stat
+
+    rates = np.asarray([21.7460507, 27.85126413, 21.96285929, 9.03248628])
+    monkeypatch.setattr(jsession, "uniform_stat",
+                        lambda n: JStat(rates, np.ones((n, n))))
+    monkeypatch.setattr(tsession, "uniform_stat",
+                        lambda n: Stat(rates, np.ones((n, n))))
+
+    def rule4(P_):
+        return (P_.seq(0, 1, 2, 3)
+                .where(P_.attr(1) < P_.attr(2) + 0.3)
+                .within(3.0))
+
+    scfg = dict(SCFG, n_types=4, n_chunks=6)
+    k = 2
+    jsess = jcep.open(rule4(JP), partitions=k, plan="auto",
+                      config=JConfig(**CONFIG))
+    tsess = cep.open(rule4(P), partitions=k, plan="auto",
+                     config=RuntimeConfig(device="cpu", **CONFIG))
+    assert tsess.plan_kind == jsess.plan_kind == "tree"
+    assert tsess.planner_name == "zstream"
+    tel = tsess.run(streams(k, scfg=scfg))
+    assert_same_telemetry(tel, jsess.run(jstreams(k, scfg=scfg)))
+    assert tel.per_partition_matches.tolist() == [
+        RefEngine(rule4(P).build()).run(s).full_matches
+        for s in streams(k, scfg=scfg)]
 
 
 def test_cuda_default_without_gpu_raises():
