@@ -9,11 +9,14 @@ Phases (each prints its seconds; any failure exits non-zero):
 
 1. device   — torch's device name, and nvidia-smi's name and power limit;
 2. build    — nvcc builds the CUDA kernels from ``src/repro_torch``;
-3. kernels  — each of the four kernels against its plain PyTorch version
+3. kernels  — each of the five kernels against its plain PyTorch version
               on the card, bit for bit, at its path's shapes, at ragged
               shapes, over every op code with ties and negative
-              thresholds, and on all-op-0 stacks; median times (CUDA
-              events) beside each kernel's bound;
+              thresholds, and on all-op-0 stacks: the two joins' bit
+              words and row counts, the row and pair counts, and the
+              survivor selection (with overflow, zero survivors and a
+              capacity past M*B); median times (CUDA events) beside each
+              kernel's bound;
 4. main     — ``repro_torch.cep.open(..., plan="order").run(...)`` on the
               K=16 FlowSense alert rule at full width, with the launch
               counters zeroed just before and read just after; then the
@@ -23,14 +26,16 @@ Phases (each prints its seconds; any failure exits non-zero):
               brute-force ``RefEngine``;
 6. profile  — the first chunks of the main path under ``torch.profiler``:
               device-busy share and the ops with the most device time;
+              fails if a device-wide scan (an M*B-cell scan) remains;
 7. tree     — phases 4-6 for ``plan="tree"`` (ZStream trees, the unpacked
               join): the full-width run with its own launch counts and its
               plain rerun, the narrow run against ``RefEngine``, and the
               profile of its first chunks.
 
-The line before the last is a JSON ``kernels`` record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits with code 1 and prints no result.
+The survivor selection's record is a JSON line of its own; the line
+before the last is the JSON ``kernels`` record of the four kernels that
+replace TPU kernels; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -64,8 +69,10 @@ M_CAP = 8192
 # size depends on the statistics): the JAX tests'.  A replan whose set
 # outgrows them raises, so a run that finishes shows they suffice.
 TREE_CAPS = dict(max_invariants=8, max_terms=16)
-# One pow2 escalation of a tree step (m_cap 16384) holds a 4 GiB mask and
-# a 16 GiB running count; a second would not fit in 80 GB.
+# One pow2 escalation of a tree step (m_cap 16384) holds a 512 MiB bit
+# mask and no running count, so memory no longer limits it.  The cap
+# stays at one step so the tree path's work matches the earlier
+# measurements in PERF.md; the port's first benchmark is where to raise it.
 TREE_MAX_ESCALATIONS = 1
 
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
@@ -75,9 +82,14 @@ REPLACES = {
     "window_join": "src/repro/kernels/window_join.py:120",
     "window_join_count": "src/repro/kernels/window_join.py:202",
 }
+# The survivor selection replaces the reference's jnp.nonzero in _compact,
+# not a TPU kernel.
+SELECT = "select_survivors"
+SELECT_REPLACES = "src/repro/core/engine.py:167"
 # The kernels each path must launch.
-PATH_KERNELS = {"order": ("window_join_packed", "window_join_rowcount"),
-                "tree": ("window_join", "window_join_rowcount")}
+PATH_KERNELS = {"order": ("window_join_packed", "window_join_rowcount",
+                          SELECT),
+                "tree": ("window_join", "window_join_rowcount", SELECT)}
 INT_FIELDS = ("chunks", "events", "matches", "replans", "deployments",
               "violations", "host_syncs", "overflow", "dropped",
               "neg_rejected", "closure_expansions", "escalations",
@@ -191,14 +203,21 @@ def roofline(nbytes, n_ops):
                                  else "operations")
 
 
+def bit_output_bytes(k, m, b):
+    """Bytes of a bit-word join's outputs: (K, M, ceil(B/32)) int32 words
+    and (K, M) int32 row counts."""
+    return 4 * k * m * -(-b // 32) + 4 * k * m
+
+
 def packed_bound(L, R, ops8, th, mv, bv):
     """Least time for the packed join on these inputs: each input read
-    once and the byte mask written once, against 3 f32 operations (shift,
-    compare, AND) per active constraint row of each valid cell."""
+    once and the bit words and row counts written once, against 3 f32
+    operations (shift, compare, AND) per active constraint row of each
+    valid cell."""
     k, c, m = L.shape
     b = R.shape[2]
     nbytes = 4 * (L.numel() + R.numel() + th.numel()) + ops8.numel() \
-        + mv.numel() + bv.numel() + k * m * b
+        + mv.numel() + bv.numel() + bit_output_bytes(k, m, b)
     cells = (mv.sum(1).double() * bv.sum(1).double())
     active = (ops8 != 0).sum(1).double()
     ops = float((cells * (3 * active + 1)).sum())
@@ -219,12 +238,13 @@ def rowcount_bound(L, R, ops, th):
 
 def join_bound(L, R, ops, th):
     """Least time for the unpacked join on these inputs: each input read
-    once and the byte mask written once, against 3 f32 operations (shift,
-    compare, AND) per active constraint row of every cell."""
+    once and the bit words and row counts written once, against 3 f32
+    operations (shift, compare, AND) per active constraint row of every
+    cell."""
     k, c, m = L.shape
     b = R.shape[2]
     nbytes = 4 * (L.numel() + R.numel() + th.numel() + ops.numel()) \
-        + k * m * b
+        + bit_output_bytes(k, m, b)
     active = ((ops >= 1) & (ops <= 3)).sum(1).double()
     ops_n = float((m * b * 3 * active).sum())
     return roofline(nbytes, ops_n)
@@ -242,8 +262,64 @@ def count_bound(L, R, ops, th):
     return roofline(nbytes, ops_n)
 
 
+def select_bound(bits, counts, b, out_cap):
+    """Least time for the survivor selection on these inputs: the row
+    counts read once, the bit words of the rows holding a survivor ranked
+    below ``out_cap`` read once, and the (K, out_cap) int64 indices written
+    once; its operations (a popcount per word, an index per survivor) are
+    negligible beside the bytes."""
+    import torch
+
+    k, m, w = bits.shape
+    ends = torch.cumsum(counts, dim=1, dtype=torch.int64)
+    needed = (counts > 0) & (ends - counts < out_cap)
+    nbytes = 4 * counts.numel() + 4 * w * int(needed.sum()) \
+        + 8 * k * out_cap
+    return roofline(nbytes, 0)
+
+
+def mask_err(got, want):
+    """max_abs_err of a (bit words, row counts) pair: 1 if any mask cell
+    differs, else the largest row-count difference."""
+    import torch
+
+    if not torch.equal(got[0], want[0]):
+        return 1.0
+    return float((got[1].to(torch.int64) - want[1].to(torch.int64))
+                 .abs().max())
+
+
+def check_select(bits, counts, b, caps, what):
+    """The selection kernel against its plain version for each capacity."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    for cap in caps:
+        got = kops.select_survivors(bits, counts, b, cap)
+        want = kops.select_survivors(bits, counts, b, cap, backend="ref")
+        if not torch.equal(got, want):
+            raise AssertionError(f"select_survivors kernel != plain at "
+                                 f"{tuple(bits.shape)}, B={b}, out_cap="
+                                 f"{cap} ({what})")
+
+
+def sparse_bits(gen, k, m, b, per_partition, device):
+    """Bit words and row counts of a random mask with about
+    ``per_partition`` survivors per partition spread over all rows: the
+    selection's worst case at a capacity near that count (every row holds
+    a survivor, every row's words are read)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    mask = torch.rand((k, m, b), generator=gen, device=device) \
+        < per_partition / (m * b)
+    return ref.pack_bits(mask), mask.sum(dim=-1, dtype=torch.int32)
+
+
 def check_kernels(device, c_packed, c_rowcount, c_join):
-    """The four kernels vs their plain versions at their paths' shapes and
+    """The five kernels vs their plain versions at their paths' shapes and
     at ragged / extreme shapes; returns the timing records."""
     import torch
 
@@ -253,16 +329,20 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
     gen.manual_seed(0)
     shapes = [(K_MAIN, c_packed, M_CAP, B_CAP), (3, 5, 1000, 333),
               (2, 32, 257, 129), (1, 1, 1, 1), (4, 64, 37, 1030)]
+    n_select = 0
     for (k, c, m, b) in shapes:
         args = packed_inputs(gen, k, c, m, b, device)
-        got = kops.window_join_packed(*args)
-        want = kops.window_join_packed(*args, backend="ref")
-        if not torch.equal(got, want):
-            raise AssertionError(f"packed kernel != plain at {(k, c, m, b)}")
         none = (args[0], args[1], torch.zeros_like(args[2]), *args[3:])
-        if not torch.equal(kops.window_join_packed(*none),
-                           kops.window_join_packed(*none, backend="ref")):
-            raise AssertionError(f"packed all-none ops at {(k, c, m, b)}")
+        for a, what in ((args, "mixed ops"), (none, "all-op-0 stack")):
+            got = kops.window_join_packed_bits(*a)
+            if mask_err(got, kops.window_join_packed_bits(
+                    *a, backend="ref")) != 0:
+                raise AssertionError(f"packed kernel != plain at "
+                                     f"{(k, c, m, b)} ({what})")
+            # Overflow (1, 100 or M_CAP below the survivors), a capacity
+            # past M*B, and the real one.
+            check_select(*got, b, (1, 100, M_CAP, m * b + 7), what)
+            n_select += 4
     for (k, c, m, b) in [(K_MAIN, c_rowcount, M_CAP, B_CAP)] + shapes[1:]:
         args = rowcount_inputs(gen, k, c, m, b, device)
         got = kops.window_join_rowcount(*args)
@@ -274,44 +354,74 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
     for (k, c, m, b) in [tree_shape] + shapes[1:]:
         args = unpacked_inputs(gen, k, c, m, b, device)
         none = (args[0], args[1], torch.zeros_like(args[2]), args[3])
-        for fn in (kops.window_join, kops.window_join_count):
-            for a, what in ((args, "mixed ops"), (none, "all-op-0 stack")):
-                if not torch.equal(fn(*a), fn(*a, backend="ref")):
-                    raise AssertionError(f"{fn.__name__} kernel != plain "
-                                         f"at {(k, c, m, b)} ({what})")
+        for a, what in ((args, "mixed ops"), (none, "all-op-0 stack")):
+            got = kops.window_join_bits(*a)
+            if mask_err(got, kops.window_join_bits(*a, backend="ref")) != 0:
+                raise AssertionError(f"join kernel != plain at "
+                                     f"{(k, c, m, b)} ({what})")
+            if not torch.equal(kops.window_join_count(*a),
+                               kops.window_join_count(*a, backend="ref")):
+                raise AssertionError(f"count kernel != plain at "
+                                     f"{(k, c, m, b)} ({what})")
+            check_select(*got, b, (1, M_CAP, m * b + 7), what)
+            n_select += 3
         if kops.window_join_count(*none).tolist() != [m * b] * k:
             raise AssertionError(f"all-op-0 count != M*B at {(k, c, m, b)}")
+    # Zero survivors, and about one survivor per row at the tree shape.
+    k, _, m, b = tree_shape
+    zero = (torch.zeros((k, m, -(-b // 32)), dtype=torch.int32,
+                        device=device),
+            torch.zeros((k, m), dtype=torch.int32, device=device))
+    check_select(*zero, b, (1, M_CAP), "zero survivors")
+    sparse = sparse_bits(gen, k, m, b, M_CAP, device)
+    check_select(*sparse, b, (M_CAP // 2, M_CAP, 2 * M_CAP),
+                 "one survivor per row")
+    n_select += 5
     print(f"   bit-identical to the plain versions at {len(shapes)} packed, "
           f"{len(shapes)} rowcount and {len(shapes)} join/count shapes (all "
           "op codes, ties, negative thresholds, all-none stacks; all-op-0 "
-          "counts == M*B)")
+          f"counts == M*B) and in {n_select} selections (overflow, zero "
+          "survivors, capacity past M*B, ragged B)")
 
     records = {}
     p_args = packed_inputs(gen, K_MAIN, c_packed, M_CAP, B_CAP, device)
     r_args = rowcount_inputs(gen, K_MAIN, c_rowcount, M_CAP, B_CAP, device)
     u_args = unpacked_inputs(gen, *tree_shape, device)
-    for name, fn, args, bound in (
-            ("window_join_packed", kops.window_join_packed, p_args,
-             packed_bound),
+    for name, fn, args, bound, diff in (
+            ("window_join_packed", kops.window_join_packed_bits, p_args,
+             packed_bound, mask_err),
             ("window_join_rowcount", kops.window_join_rowcount, r_args,
-             rowcount_bound),
-            ("window_join", kops.window_join, u_args, join_bound),
+             rowcount_bound, None),
+            ("window_join", kops.window_join_bits, u_args, join_bound,
+             mask_err),
             ("window_join_count", kops.window_join_count, u_args,
-             count_bound)):
+             count_bound, None),
+            (SELECT, kops.select_survivors, (*sparse, b, M_CAP),
+             select_bound, None)):
         got = fn(*args)
         want = fn(*args, backend="ref")
-        err = float((got.to(torch.int64) - want.to(torch.int64))
-                    .abs().max())
+        err = (diff(got, want) if diff else
+               float((got.to(torch.int64) - want.to(torch.int64))
+                     .abs().max()))
         ms = cuda_ms(lambda: fn(*args))
         plain_ms = cuda_ms(lambda: fn(*args, backend="ref"), reps=5,
                            inner=2)
         bound_ms, bound_by = bound(*args)
-        shape = tuple(args[0].shape) + (args[1].shape[2],)
-        print(f"   {name} (K, C, M, B)={shape}: kernel {ms:.4f} ms, "
+        shape = (f"(K, M, B, out_cap)={tuple(args[0].shape[:2]) + args[2:]}"
+                 if name == SELECT else f"(K, C, M, B)="
+                 f"{tuple(args[0].shape) + (args[1].shape[2],)}")
+        print(f"   {name} {shape}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), max_abs_err {err}")
         records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
+    # The selection at the order path's shape, from the packed join.
+    p_out = kops.window_join_packed_bits(*p_args)
+    o_ms = cuda_ms(lambda: kops.select_survivors(*p_out, B_CAP, M_CAP))
+    o_bound, _ = select_bound(*p_out, B_CAP, M_CAP)
+    print(f"   {SELECT} (K, M, B, out_cap)={(K_MAIN, M_CAP, B_CAP, M_CAP)} "
+          f"(packed join output): kernel {o_ms:.4f} ms, bound "
+          f"{o_bound:.4f} ms (bytes)")
     return records
 
 
@@ -421,6 +531,16 @@ def profile_main(plan="order", n_chunks=16, top=12):
     for e in rows[:top]:
         print(f"   device {e.self_device_time_total / 1e3:10.2f} ms  "
               f"calls {e.count:6d}  {e.key[:70]}")
+    copies = [e for e in rows if "direct_copy" in e.key]
+    print(f"   direct_copy kernels: "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms "
+          f"over {sum(e.count for e in copies)} calls")
+    # The compaction reads the join's bit words: nothing scans M*B cells
+    # (the old running count took PyTorch's device-wide scan).
+    scans = [e.key for e in rows if "DeviceScan" in e.key]
+    if scans:
+        raise AssertionError(f"device-wide scans on the {plan} path: "
+                             f"{scans}")
 
 
 def check_oracle(device, plan="order"):
@@ -503,6 +623,11 @@ def main() -> int:
         done(f"profile, plan={plan}", t)
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
+    print(json.dumps({"selection_kernel": dict(
+        name=SELECT, route="cuda", source=SOURCE, replaces=SELECT_REPLACES,
+        launches=sum(n[SELECT] for n in launches.values()),
+        launches_by_path={p: n[SELECT] for p, n in launches.items()},
+        library_ms=None, **records[SELECT])}))
     # ``launches`` sums a kernel's launches over the paths' runs; the
     # split is in ``launches_by_path``.
     kernels = [dict(name=name, route="cuda", source=SOURCE,

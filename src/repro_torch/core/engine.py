@@ -12,7 +12,9 @@ tensor (where the reference vmaps one partition's function):
 * **Every plan step is one masked windowed cross-join** of ``C`` constraint
   rows between ``M`` partial matches and ``B`` candidate events — a CUDA
   kernel on the card (packed for order plans, unpacked for tree plans),
-  its plain version on the CPU — followed by a fixed-size compaction.
+  its plain version on the CPU, giving the mask as bit words and row
+  counts — followed by a fixed-size compaction that reads only the rows
+  holding a kept survivor.
 
 Plans are data: an order plan enters as a ``(K, n)`` row matrix, a tree
 plan as a ``(K, n-1, 2)`` slot-join matrix, so every partition runs its
@@ -184,28 +186,25 @@ def _gather_rows(x, idx):
     return x[kidx, idx]
 
 
-def _compact(L: MatchSet, R: MatchSet, ok, out_cap: int):
+def _compact(L: MatchSet, R: MatchSet, bits, row_counts, out_cap: int,
+             backend):
     """Fixed-size compaction of the surviving (m, b) pairs into a MatchSet.
 
-    The reference takes ``jnp.nonzero(size=out_cap, fill_value=m*b)``.
-    Here a running count over the row-major flattened mask locates the j-th
-    survivor by binary search, so the output keeps row-major order (which
-    decides the survivors once ``overflow > 0``), has a fixed size, and
-    needs no host sync.  Slots past the last survivor point at ``m*b``,
-    like the reference's fill value, and are invalid.
+    The join gives its mask as bit words (K, M, ceil(B/32)) and per-row
+    survivor counts (K, M).  The reference takes ``jnp.nonzero(size=
+    out_cap, fill_value=m*b)``; ``kops.select_survivors`` gives the same
+    row-major indices from the words, reading only the rows that hold a
+    survivor below ``out_cap`` (a scan over the (K, M) row counts ranks
+    them), so the output keeps row-major order (which decides the
+    survivors once ``overflow > 0``), has a fixed size, and needs no host
+    sync.  Slots past the last survivor point at ``m*b``, like the
+    reference's fill value, and are invalid.
     """
-    k, m, b = ok.shape
-    flat = ok.reshape(k, m * b)
-    # One 1-D scan per partition: a scan over the whole of a 1-D tensor
-    # takes PyTorch's device-wide scan, where a (K, M*B) scan along its
-    # last dim runs one thread block per row (measured: PERF.md).
-    running = torch.empty((k, m * b), dtype=torch.int32, device=ok.device)
-    for i in range(k):
-        torch.cumsum(flat[i], dim=0, dtype=torch.int32, out=running[i])
-    pm_created = running[:, -1].clone()
-    want = torch.arange(1, out_cap + 1, dtype=torch.int32,
-                        device=ok.device).expand(k, -1).contiguous()
-    idx = torch.searchsorted(running, want)            # (K, out_cap) i64
+    m = row_counts.shape[1]
+    b = R.valid.shape[1]
+    idx = kops.select_survivors(bits, row_counts, b, out_cap,
+                                backend=backend)           # (K, out_cap)
+    pm_created = row_counts.sum(dim=1, dtype=torch.int32)
     new_valid = idx < m * b
     mi = torch.clamp(idx // b, 0, m - 1)
     bi = torch.clamp(idx % b, 0, b - 1)
@@ -229,7 +228,7 @@ def _compact(L: MatchSet, R: MatchSet, ok, out_cap: int):
 def _join(spec, cfg, L: MatchSet, R: MatchSet, order_rows,
           out_cap: int):
     """One tree step: the unpacked constraint cross-join + compaction.
-    ``pm_created`` is the compaction's running count (no second sum)."""
+    ``pm_created`` is the sum of the join's row counts."""
     k, m = L.valid.shape
     b = R.valid.shape[1]
     rows = (
@@ -239,8 +238,9 @@ def _join(spec, cfg, L: MatchSet, R: MatchSet, order_rows,
         + _pred_rows(spec, L, R)
     )
     Ls, Rs, ops_, ths = _rows_to_stacks(rows, k, m, b, L.valid.device)
-    ok = kops.window_join(Ls, Rs, ops_, ths, backend=cfg.backend)
-    return _compact(L, R, ok, out_cap)
+    bits, counts = kops.window_join_bits(Ls, Rs, ops_, ths,
+                                         backend=cfg.backend)
+    return _compact(L, R, bits, counts, out_cap, cfg.backend)
 
 
 def _row_counts(cfg, rows, k, m, b, device):
@@ -637,9 +637,10 @@ class OrderEngine(_Engine):
             Rr.append(attr_b[:, :, bc])
         Ls = torch.stack([x.to(torch.float32) for x in Lr], dim=1)
         Rs = torch.stack([x.to(torch.float32) for x in Rr], dim=1)
-        ok = kops.window_join_packed(Ls, Rs, sops.contiguous(), self._thetas,
-                                     pm.valid, R.valid, backend=cfg.backend)
-        return _compact(pm, R, ok, cfg.m_cap)
+        bits, counts = kops.window_join_packed_bits(
+            Ls, Rs, sops.contiguous(), self._thetas, pm.valid, R.valid,
+            backend=cfg.backend)
+        return _compact(pm, R, bits, counts, cfg.m_cap, cfg.backend)
 
     def process(self, buffers: Buffers, chunk: Chunk, plan: PlanOperands,
                 t0, t1, born_lo, born_hi) -> Tuple[Buffers, StepResult]:

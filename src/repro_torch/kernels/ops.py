@@ -9,8 +9,13 @@
 * ``backend="cuda"`` on a CPU tensor raises.
 
 The engines call these through one ``backend`` field of their config, so
-the whole data plane switches with one flag.  The CUDA kernels take a
-leading fleet axis K (``(K, C, M)``); the plain versions take it or not.
+the whole data plane switches with one flag.  A join step runs
+``window_join_packed_bits`` (order plans) or ``window_join_bits`` (tree
+plans), which give the mask as bit words plus row counts, then
+``select_survivors``; ``window_join_packed`` and ``window_join`` give the
+same mask as bool (on the card unpacked from the words), for tests.  The
+CUDA kernels take a leading fleet axis K (``(K, C, M)``); the plain
+versions take it or not.
 The JAX package's ``REPRO_KERNEL_BACKEND`` environment override keeps its
 JAX meaning and is not read here.
 """
@@ -47,6 +52,17 @@ def window_join_packed(L, R, ops8, thetas, mvalid, bvalid, *,
     return _wj.window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid)
 
 
+def window_join_packed_bits(L, R, ops8, thetas, mvalid, bvalid, *,
+                            backend: Optional[str] = None):
+    """Packed-strip join as (bit words (..., M, ceil(B/32)) int32, row
+    counts (..., M) int32)."""
+    if resolve_backend(backend, L) == "ref":
+        return _ref.window_join_packed_bits_ref(L, R, ops8, thetas, mvalid,
+                                                bvalid)
+    return _wj.window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid,
+                                            bvalid)
+
+
 def window_join_rowcount(L, R, ops, thetas, *,
                          backend: Optional[str] = None):
     """Per-m row counts — (..., M) int32 — without materializing (M, B)."""
@@ -61,6 +77,24 @@ def window_join(L, R, ops, thetas, *, backend: Optional[str] = None):
     if resolve_backend(backend, L) == "ref":
         return _ref.window_join_ref(L, R, ops, thetas)
     return _wj.window_join_cuda(L, R, ops, thetas)
+
+
+def window_join_bits(L, R, ops, thetas, *, backend: Optional[str] = None):
+    """The tree engine's join as (bit words (..., M, ceil(B/32)) int32, row
+    counts (..., M) int32)."""
+    if resolve_backend(backend, L) == "ref":
+        return _ref.window_join_bits_ref(L, R, ops, thetas)
+    return _wj.window_join_bits_cuda(L, R, ops, thetas)
+
+
+def select_survivors(bits, row_counts, b: int, out_cap: int, *,
+                     backend: Optional[str] = None):
+    """Row-major flat indices ``m * b + col`` of the first ``out_cap``
+    survivors of a bit-word mask, ``M * b`` after the last one —
+    (..., out_cap) int64 (the reference's fixed-size ``jnp.nonzero``)."""
+    if resolve_backend(backend, bits) == "ref":
+        return _ref.select_survivors_ref(bits, row_counts, b, out_cap)
+    return _wj.select_survivors_cuda(bits, row_counts, b, out_cap)
 
 
 def window_join_count(L, R, ops, thetas, *, backend: Optional[str] = None):

@@ -20,9 +20,17 @@ batch dimension each function is a literal twin of the JAX package's
 reference, which is what the CPU tests hold them to, bit for bit.  The CPU
 path of the engine runs these; ``chip_smoke.py`` holds the CUDA kernels
 against them on the card.
+
+The two joins that feed the compaction also come as bit words
+(``*_bits_ref``): the mask packed 32 columns to an int32 word (bit ``j``
+of word ``w`` is column ``32 w + j``, tail bits 0) beside each row's
+survivor count, which ``select_survivors_ref`` turns into the reference's
+``jnp.nonzero(size=out_cap, fill_value=m*b)`` indices.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -99,3 +107,66 @@ def window_join_rowcount_ref(L, R, ops, thetas):
     (cnt - 1) of the engine's finalize pass.  Returns (..., M) int32.
     """
     return window_join_ref(L, R, ops, thetas).sum(dim=-1, dtype=torch.int32)
+
+
+def pack_bits(mask):
+    """(..., M, B) bool -> (..., M, ceil(B/32)) int32 bit words: bit j of
+    word w in row m is mask[..., m, 32 w + j]; tail bits past B are 0.
+    A word is its 4 bytes, least significant first (little-endian)."""
+    *lead, m, b = mask.shape
+    w = -(-b // 32)
+    if b == 32 * w:
+        padded = mask.contiguous()
+    else:
+        padded = torch.zeros((*lead, m, 32 * w), dtype=torch.bool,
+                             device=mask.device)
+        padded[..., :b] = mask
+    cells = padded.view(torch.uint8).view(*lead, m, 4 * w, 8)
+    octets = cells[..., 0].clone()
+    for j in range(1, 8):
+        octets |= cells[..., j] << j
+    return octets.view(torch.int32)
+
+
+def unpack_bits(bits, b):
+    """(..., M, W) int32 bit words -> the (..., M, b) bool mask."""
+    octets = bits.view(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    cells = (octets[..., None] >> shifts) & 1
+    return cells.view(torch.bool).flatten(-2)[..., :b]
+
+
+def _bits_and_counts(mask):
+    return pack_bits(mask), mask.sum(dim=-1, dtype=torch.int32)
+
+
+def window_join_bits_ref(L, R, ops, thetas):
+    """``window_join_ref``'s mask as (bit words (..., M, ceil(B/32)) int32,
+    row counts (..., M) int32)."""
+    return _bits_and_counts(window_join_ref(L, R, ops, thetas))
+
+
+def window_join_packed_bits_ref(L, R, ops8, thetas, mvalid, bvalid):
+    """``window_join_packed_ref``'s mask as (bit words, row counts)."""
+    return _bits_and_counts(window_join_packed_ref(L, R, ops8, thetas,
+                                                   mvalid, bvalid))
+
+
+def select_survivors_ref(bits, row_counts, b, out_cap):
+    """The first ``out_cap`` surviving cells in row-major order, as flat
+    indices ``m * b + col`` — (..., out_cap) int64, ``M * b`` past the
+    last survivor (the reference's ``jnp.nonzero(flat, size=out_cap,
+    fill_value=m*b)`` per partition).
+
+    The plain version reads the survivors off the unpacked mask alone
+    (the row counts are its popcounts), one ``torch.nonzero`` per
+    partition; on a CUDA tensor each is a host sync.
+    """
+    *lead, m, _ = bits.shape
+    flat = unpack_bits(bits, b).reshape(math.prod(lead), m * b)
+    idx = torch.full((flat.shape[0], out_cap), m * b, dtype=torch.int64,
+                     device=bits.device)
+    for i in range(flat.shape[0]):
+        found = torch.nonzero(flat[i]).flatten()[:out_cap]
+        idx[i, :found.numel()] = found
+    return idx.reshape(*lead, out_cap)

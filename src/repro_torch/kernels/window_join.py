@@ -6,20 +6,31 @@ cross-evaluation of ``C`` constraint rows between ``M`` partial matches and
 
     ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[c]).
 
-Four kernels, written by hand for Hopper in ``csrc/window_join.cu``:
+Five kernels, written by hand for Hopper in ``csrc/window_join.cu``:
 
-* ``window_join_packed_cuda`` replaces ``window_join_packed_pallas``: the
-  order engine's join step, validity as two uint8 vectors, ``(K, M, B)``
-  bool mask out.
+* ``window_join_packed_bits_cuda`` replaces ``window_join_packed_pallas``:
+  the order engine's join step, validity as two uint8 vectors.  Out: the
+  mask as bit words ``(K, M, ceil(B/32))`` int32 (bit ``j`` of word ``w``
+  in row ``m`` is cell ``b = 32 w + j``; tail bits past ``B`` are 0) and
+  each row's survivor count ``(K, M)`` int32.
+* ``window_join_bits_cuda`` replaces ``window_join_pallas``: the tree
+  engine's join step, validity as two ordinary f32 rows; the same two
+  outputs.
+* ``select_survivors_cuda`` replaces the reference's fixed-size
+  ``jnp.nonzero`` in ``_compact`` (not a TPU kernel): from the bit words
+  and row counts, the row-major flat indices ``m * B + b`` of the first
+  ``out_cap`` survivors, ``M * B`` after the last one.  It reads only the
+  rows that hold a survivor below ``out_cap``.
 * ``window_join_rowcount_cuda`` replaces ``window_join_rowcount_pallas``:
   per-row counts ``(K, M)`` int32 for the negation veto and the Kleene
   count; the mask is never stored.
-* ``window_join_cuda`` replaces ``window_join_pallas``: the tree engine's
-  join step, validity as two ordinary f32 rows, ``(K, M, B)`` bool mask
-  out.
 * ``window_join_count_cuda`` replaces ``window_join_count_pallas``: the
-  total of that mask per partition, ``(K,)`` int32; the mask is never
-  stored.
+  total of the unpacked mask per partition, ``(K,)`` int32; the mask is
+  never stored.
+
+``window_join_packed_cuda`` and ``window_join_cuda`` give the bool mask of
+the two bit-word joins (unpacked from their words) for callers that want
+it; the engine compacts from the words and never unpacks them.
 
 Build.  The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, under
@@ -29,9 +40,9 @@ It is loaded with ``ctypes``.  Nothing here runs at import: the module
 imports on a machine without ``nvcc`` or a GPU, and only a launch builds.
 
 Launch.  Each wrapper checks device, dtype, shape and contiguity, allocates
-its output with ``torch.empty``, launches on PyTorch's current stream and
-raises if the C launcher returns a CUDA error.  It adds one to its entry of
-``LAUNCHES`` where it launches, and nowhere else.
+its outputs with ``torch.empty``, launches on PyTorch's current stream and
+raises if the C launcher returns a CUDA error.  It adds one to its entry
+of ``LAUNCHES`` where it launches, and nowhere else.
 
 Small shapes.  The JAX package's ``_tile_waste`` sends mostly-padding
 shapes to its jnp reference instead of the TPU kernel.  The port does not
@@ -53,6 +64,8 @@ from typing import Dict, Optional
 
 import torch
 
+from . import ref as _ref
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "window_join.cu"
 _REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -64,7 +77,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"window_join_packed": 0,
                             "window_join_rowcount": 0,
                             "window_join": 0,
-                            "window_join_count": 0}
+                            "window_join_count": 0,
+                            "select_survivors": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -120,10 +134,13 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wj_packed.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-        lib.wj_packed.restype = i32
-        for fn in (lib.wj_rowcount, lib.wj_join, lib.wj_count):
+        lib.wj_packed.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.wj_join.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        for fn in (lib.wj_rowcount, lib.wj_count):
             fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.wj_select.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        for fn in (lib.wj_packed, lib.wj_join, lib.wj_rowcount, lib.wj_count,
+                   lib.wj_select):
             fn.restype = i32
         lib.wj_error_string.argtypes = [i32]
         lib.wj_error_string.restype = ctypes.c_char_p
@@ -161,8 +178,10 @@ def _dims(L, R):
     if C > lib.wj_max_c():
         raise ValueError(f"C={C} constraint rows exceed the kernel's "
                          f"limit of {lib.wj_max_c()}")
-    # grid.z holds K; grid.x the (4, 128) cell tiles of the widest grid.
-    if K >= 65536 or -(-M // 4) * -(-B // 128) >= 2 ** 31:
+    # grid.z holds K; grid.x the widest launch's blocks: the pair count's
+    # (32, 128) tiles or the row count's and selection's 8-row blocks (the
+    # bit-word joins take 32-row strips).
+    if K >= 65536 or max(-(-M // 8), -(-M // 32) * -(-B // 128)) >= 2 ** 31:
         raise ValueError(f"shape (K={K}, M={M}, B={B}) exceeds the grid")
     return lib, (K, C, M, B)
 
@@ -174,8 +193,16 @@ def _launched(rc, lib, name):
     LAUNCHES[name] += 1
 
 
-def window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid):
-    """ok[k, m, b] = mvalid & bvalid & AND_c sel_c — (K, M, B) bool.
+def _bit_outputs(K, M, B, device):
+    """Empty bit words (K, M, ceil(B/32)) and row counts (K, M), int32."""
+    return (torch.empty((K, M, -(-B // 32)), dtype=torch.int32,
+                        device=device),
+            torch.empty((K, M), dtype=torch.int32, device=device))
+
+
+def window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid, bvalid):
+    """The packed join's mask as bit words and row counts:
+    ``(K, M, ceil(B/32))`` int32 and ``(K, M)`` int32.
 
     L: (K, C, M) f32, R: (K, C, B) f32, ops8: (K, C) int8, thetas: (C,)
     f32, mvalid: (K, M), bvalid: (K, B) uint8 or bool; all contiguous on
@@ -190,17 +217,25 @@ def window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid):
     _check("thetas", thetas, torch.float32, (C,), dev)
     _check("mvalid", mvalid, torch.uint8, (K, M), dev)
     _check("bvalid", bvalid, torch.uint8, (K, B), dev)
-    out = torch.empty((K, M, B), dtype=torch.uint8, device=dev)
-    if out.numel() == 0:
-        return out.view(torch.bool)
+    bits, counts = _bit_outputs(K, M, B, dev)
+    if counts.numel() == 0:
+        return bits, counts
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wj_packed(L.data_ptr(), R.data_ptr(), ops8.data_ptr(),
                            thetas.data_ptr(), mvalid.data_ptr(),
-                           bvalid.data_ptr(), out.data_ptr(), K, C, M, B,
-                           stream)
+                           bvalid.data_ptr(), bits.data_ptr(),
+                           counts.data_ptr(), K, C, M, B, stream)
     _launched(rc, lib, "window_join_packed")
-    return out.view(torch.bool)
+    return bits, counts
+
+
+def window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid):
+    """ok[k, m, b] = mvalid & bvalid & AND_c sel_c — (K, M, B) bool,
+    unpacked from ``window_join_packed_bits_cuda``'s words."""
+    bits, _ = window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid,
+                                           bvalid)
+    return _ref.unpack_bits(bits, R.shape[2])
 
 
 def _unpacked(L, R, ops, thetas):
@@ -216,13 +251,14 @@ def _unpacked(L, R, ops, thetas):
     return lib, (K, C, M, B)
 
 
-def _launch(lib, fn, name, L, R, ops, thetas, out, dims):
-    """Launches ``fn`` on the current stream of ``out``'s device."""
-    dev = out.device
+def _launch(lib, fn, name, L, R, ops, thetas, outs, dims):
+    """Launches ``fn`` on the current stream of the outputs' device."""
+    dev = outs[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(L.data_ptr(), R.data_ptr(), ops.data_ptr(),
-                thetas.data_ptr(), out.data_ptr(), *dims, stream)
+                thetas.data_ptr(), *(o.data_ptr() for o in outs), *dims,
+                stream)
     _launched(rc, lib, name)
 
 
@@ -233,20 +269,28 @@ def window_join_rowcount_cuda(L, R, ops, thetas):
     if out.numel() == 0:
         return out
     _launch(lib, lib.wj_rowcount, "window_join_rowcount", L, R, ops, thetas,
-            out, (K, C, M, B))
+            (out,), (K, C, M, B))
     return out
 
 
-def window_join_cuda(L, R, ops, thetas):
-    """ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], th[c]) —
-    (K, M, B) bool."""
+def window_join_bits_cuda(L, R, ops, thetas):
+    """The unpacked join's mask, ok[k, m, b] = AND_c cmp(op[k, c],
+    L[k, c, m], R[k, c, b], th[c]), as bit words and row counts:
+    ``(K, M, ceil(B/32))`` int32 and ``(K, M)`` int32."""
     lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
-    out = torch.empty((K, M, B), dtype=torch.uint8, device=L.device)
-    if out.numel() == 0:
-        return out.view(torch.bool)
-    _launch(lib, lib.wj_join, "window_join", L, R, ops, thetas, out,
-            (K, C, M, B))
-    return out.view(torch.bool)
+    bits, counts = _bit_outputs(K, M, B, L.device)
+    if counts.numel() == 0:
+        return bits, counts
+    _launch(lib, lib.wj_join, "window_join", L, R, ops, thetas,
+            (bits, counts), (K, C, M, B))
+    return bits, counts
+
+
+def window_join_cuda(L, R, ops, thetas):
+    """ok[k, m, b] — (K, M, B) bool, unpacked from
+    ``window_join_bits_cuda``'s words."""
+    bits, _ = window_join_bits_cuda(L, R, ops, thetas)
+    return _ref.unpack_bits(bits, R.shape[2])
 
 
 def window_join_count_cuda(L, R, ops, thetas):
@@ -258,6 +302,42 @@ def window_join_count_cuda(L, R, ops, thetas):
     out = torch.zeros((K,), dtype=torch.int32, device=L.device)
     if K == 0 or M * B == 0:
         return out
-    _launch(lib, lib.wj_count, "window_join_count", L, R, ops, thetas, out,
-            (K, C, M, B))
+    _launch(lib, lib.wj_count, "window_join_count", L, R, ops, thetas,
+            (out,), (K, C, M, B))
     return out
+
+
+def select_survivors_cuda(bits, row_counts, b, out_cap):
+    """idx[k, j] = m * b + col of partition k's j-th surviving cell in
+    row-major order, for j < out_cap; ``M * b`` after the last survivor —
+    (K, out_cap) int64.
+
+    bits: (K, M, ceil(b/32)) int32 bit words, row_counts: (K, M) int32
+    (their popcounts), both contiguous on one CUDA device.  The inclusive
+    prefix of the row counts is a ``torch.cumsum`` over (K, M), as the
+    reference's ``jnp.nonzero`` computes its ranks outside any kernel.
+    """
+    if bits.dim() != 3 or bits.device.type != "cuda":
+        raise ValueError("select_survivors_cuda needs (K, M, W) bit words "
+                         f"on a CUDA device, got {tuple(bits.shape)} on "
+                         f"{bits.device}")
+    K, M, _ = bits.shape
+    dev = bits.device
+    _check("bits", bits, torch.int32, (K, M, -(-b // 32)), dev)
+    _check("row_counts", row_counts, torch.int32, (K, M), dev)
+    if K >= 65536 or M * b >= 2 ** 31 or out_cap >= 2 ** 31:
+        raise ValueError(f"shape (K={K}, M={M}, B={b}, out_cap={out_cap}) "
+                         "exceeds the selection's grid or int32 ranks")
+    lib = load_library()
+    if K * M * out_cap == 0:
+        return torch.full((K, out_cap), M * b, dtype=torch.int64,
+                          device=dev)
+    ends = torch.cumsum(row_counts, dim=1, dtype=torch.int32)
+    idx = torch.empty((K, out_cap), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wj_select(bits.data_ptr(), row_counts.data_ptr(),
+                           ends.data_ptr(), idx.data_ptr(), K, M, b, out_cap,
+                           stream)
+    _launched(rc, lib, "select_survivors")
+    return idx

@@ -7,9 +7,12 @@ equal after every chunk, and the full-match totals must equal the
 brute-force oracle.  The cases are those of ``tests/test_engine.py`` and
 ``tests/test_differential.py``: for order plans SEQ in any order, AND,
 negation at every position, Kleene with and without a bound, a
-four-position pattern and one case whose match set overflows; for tree
+four-position pattern and cases whose match set overflows; for tree
 plans the three shapes of a four-position tree, the left-deep sweep over
-n, negation, Kleene and an overflow.
+n, negation, Kleene and overflows.  Each overflow runs once more with a
+ring buffer of 40 and a match set of 48 rows, which are not multiples of
+the join's 32-column bit words, so the survivors kept past capacity come
+from a ragged last word.
 """
 
 import jax.numpy as jnp
@@ -85,6 +88,8 @@ CASES = [
     ("kleene-unbounded", _kleene(None), (0, 1, 2), 3, 45, 64, 2048),
     ("kleene-bound1", _kleene(1), (2, 0, 1), 3, 45, 64, 2048),
     ("overflow", _overflow, (0, 1), 2, 120, 64, 64),
+    # b_cap not a multiple of the 32-column bit words: ragged last word.
+    ("overflow-b40", _overflow, (0, 1), 2, 120, 40, 48),
 ]
 
 
@@ -117,7 +122,7 @@ def test_order_engine_matches_jax(name, build, order, n_types, n_events,
             got = getattr(tstate, f)[0].numpy()
             assert got.dtype == want.dtype and np.array_equal(got, want), f
         totals += [int(getattr(tres, f)[0]) for f in teng.StepResult._fields]
-    if name == "overflow":
+    if name.startswith("overflow"):
         assert totals[2] > 0  # the capacity really truncated
         return
     oracle = brute_force_matches(tpattern, tid, ts, attr, 0.0, 100.0)
@@ -166,6 +171,7 @@ TREE_CASES = [
     ("tree-kleene", _kleene(None), (0, (1, 2)), 3, 45, 64, 2048),
     ("tree-and", _and, ((0, 1), 2), 3, 50, 64, 1024),
     ("tree-overflow", _overflow, (0, 1), 2, 120, 64, 64),
+    ("tree-overflow-b40", _overflow, (0, 1), 2, 120, 40, 48),
 ]
 
 
@@ -202,7 +208,7 @@ def test_tree_engine_matches_jax(name, build, tree, n_types, n_events,
             got = getattr(tstate, f)[0].numpy()
             assert got.dtype == want.dtype and np.array_equal(got, want), f
         totals += [int(getattr(tres, f)[0]) for f in teng.StepResult._fields]
-    if name == "tree-overflow":
+    if name.startswith("tree-overflow"):
         assert totals[2] > 0  # the capacity really truncated
         return
     oracle = brute_force_matches(tpattern, tid, ts, attr, 0.0, 100.0)

@@ -7,10 +7,14 @@ interpret mode, over the cases of ``tests/test_packed_kernels.py`` and
 tile multiples, the Pallas block grids, zero-padded validity, negative
 thresholds, all-none op stacks (the pair count must not count padding),
 and values on a coarse grid so that ties (``l == r + theta``) occur.  The
+joins that feed the compaction also come as bit words plus row counts:
+those must equal the JAX masks packed with numpy, and the survivor
+selection must equal ``jnp.nonzero(size=out_cap, fill_value=m*b)``.  The
 CUDA kernels themselves run only on a GPU: the ``gpu``-marked tests skip
 here.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -209,7 +213,156 @@ def test_kernel_module_imports_without_nvcc():
                                                 "repro_torch_kernels")
     assert set(window_join.LAUNCHES) == {"window_join_packed",
                                          "window_join_rowcount",
-                                         "window_join", "window_join_count"}
+                                         "window_join", "window_join_count",
+                                         "select_survivors"}
+
+
+def _np_bits(mask):
+    """A (..., M, B) bool mask as (..., M, ceil(B/32)) int32 words, packed
+    by numpy: bit j of word w is column 32 w + j, tail bits 0."""
+    b = mask.shape[-1]
+    padded = np.zeros(mask.shape[:-1] + (-(-b // 32) * 32,), bool)
+    padded[..., :b] = mask
+    return np.packbits(padded, axis=-1, bitorder="little").view("<i4")
+
+
+def _assert_bits(got, mask):
+    bits, counts = got
+    assert bits.dtype == torch.int32 and counts.dtype == torch.int32
+    assert np.array_equal(bits.numpy(), _np_bits(mask))
+    assert np.array_equal(counts.numpy(), mask.sum(-1))
+
+
+def test_pack_bits_layout():
+    """Bit j of word w is column 32 w + j (bit 31 is the sign bit), tail
+    bits stay 0, and unpacking restores the mask at any width."""
+    mask = torch.zeros((2, 70), dtype=torch.bool)
+    mask[0, 31] = mask[0, 32] = mask[1, 69] = True
+    bits = ref.pack_bits(mask)
+    assert bits.tolist() == [[-(2 ** 31), 1, 0], [0, 0, 1 << 5]]
+    rng = np.random.default_rng(3)
+    for b in (1, 31, 32, 33, 64, 100):
+        m = torch.from_numpy(rng.random((3, 5, b)) < 0.5)
+        assert torch.equal(ref.unpack_bits(ref.pack_bits(m), b), m)
+        assert np.array_equal(ref.pack_bits(m).numpy(), _np_bits(m.numpy()))
+
+
+BIT_SHAPES = [(1, 1, 1), (3, 130, 140), (9, 257, 129), (32, 64, 300),
+              (6, 40, 33), (4, 33, 64)]
+
+
+@pytest.mark.parametrize("C,M,B", BIT_SHAPES)
+def test_join_bits_plain_matches_jax(C, M, B, rng):
+    """The tree join's bit words and row counts are the interpret-mode
+    Pallas mask packed, and its row sums; an all-op-0 stack is all ones
+    with 0 tail bits."""
+    L, R, op, _, _, _ = _case(rng, C, M, B)
+    th = _coarse(rng, (C,))  # negative thresholds included
+    want = np.asarray(window_join_pallas(L, R, op, th, interpret=True))
+    _assert_bits(ref.window_join_bits_ref(*_t(L, R, op, th)), want)
+    _assert_bits(ops.window_join_bits(*_t(L, R, op, th)), want)
+    zeros = np.zeros(C, np.int32)
+    want = np.asarray(window_join_pallas(L, R, zeros, th, interpret=True))
+    assert want.all()
+    _assert_bits(ops.window_join_bits(*_t(L, R, zeros, th)), want)
+
+
+@pytest.mark.parametrize("C,M,B", BIT_SHAPES)
+def test_packed_bits_plain_matches_jax(C, M, B, rng):
+    """The order join's bit words and row counts, validity vectors
+    included, are the interpret-mode packed Pallas mask packed; an
+    all-op-0 stack leaves exactly the valid cells."""
+    L, R, op, th, mv, bv = _case(rng, C, M, B)
+    op8 = op.astype(np.int8)
+    want = np.asarray(window_join_packed_pallas(L, R, op8, th, mv, bv,
+                                                interpret=True))
+    _assert_bits(ref.window_join_packed_bits_ref(
+        *_t(L, R, op8, th, mv, bv)), want)
+    _assert_bits(ops.window_join_packed_bits(*_t(L, R, op8, th, mv, bv)),
+                 want)
+    zeros = np.zeros(C, np.int8)
+    want = np.asarray(window_join_packed_pallas(L, R, zeros, th, mv, bv,
+                                                interpret=True))
+    assert want.sum() == int(mv.sum()) * int(bv.sum())
+    _assert_bits(ops.window_join_packed_bits(
+        *_t(L, R, zeros, th, mv, bv)), want)
+
+
+def test_bits_batched_equal_per_partition(rng):
+    """With a K axis each partition's words and counts are its own JAX
+    mask packed; ops differ per partition, thresholds are shared."""
+    K, C, M, B = 3, 6, 40, 45
+    cases = [_case(rng, C, M, B) for _ in range(K)]
+    th = cases[0][3]
+    L, R, op, _, mv, bv = (np.stack([c[i] for c in cases])
+                           for i in range(6))
+    op8 = op.astype(np.int8)
+    joined = np.stack([np.asarray(window_join_pallas(
+        L[k], R[k], op[k], th, interpret=True)) for k in range(K)])
+    packed = np.stack([np.asarray(window_join_packed_pallas(
+        L[k], R[k], op8[k], th, mv[k], bv[k], interpret=True))
+        for k in range(K)])
+    _assert_bits(ops.window_join_bits(*_t(L, R, op, th)), joined)
+    _assert_bits(ops.window_join_packed_bits(*_t(L, R, op8, th, mv, bv)),
+                 packed)
+
+
+# (K, M, B, survivor density, out_cap)
+SELECT_CASES = [
+    (2, 9, 40, 0.0, 16),      # zero survivors: all slots are the fill
+    (2, 30, 70, 0.3, 50),     # overflow: more survivors than out_cap
+    (3, 7, 33, 0.5, 300),     # out_cap > M*B
+    (2, 64, 129, 0.02, 200),  # ragged B, sparse rows
+    (1, 1, 1, 1.0, 3),
+]
+
+
+@pytest.mark.parametrize("K,M,B,density,out_cap", SELECT_CASES)
+def test_select_plain_matches_jnp_nonzero(K, M, B, density, out_cap, rng):
+    """The plain selection from bit words and row counts equals the
+    reference's ``jnp.nonzero(flat, size=out_cap, fill_value=m*b)`` per
+    partition, and so does the dispatch on a CPU tensor."""
+    mask = rng.random((K, M, B)) < density
+    bits = torch.from_numpy(_np_bits(mask))
+    counts = torch.from_numpy(mask.sum(-1).astype(np.int32))
+    got = ref.select_survivors_ref(bits, counts, B, out_cap)
+    assert got.dtype == torch.int64 and got.shape == (K, out_cap)
+    for k in range(K):
+        want = jnp.nonzero(jnp.asarray(mask[k].reshape(-1)), size=out_cap,
+                           fill_value=M * B)[0]
+        assert np.array_equal(got[k].numpy(), np.asarray(want))
+    assert torch.equal(ops.select_survivors(bits, counts, B, out_cap), got)
+    # Without a K axis, one partition.
+    assert torch.equal(ref.select_survivors_ref(bits[0], counts[0], B,
+                                                out_cap), got[0])
+
+
+def test_bits_dispatch_rules(rng):
+    """The bit-word joins and the selection follow the dispatch rules of
+    the bool joins: CPU tensors run the plain versions (no launch),
+    ``backend="cuda"`` on the CPU raises, and the CUDA wrappers refuse a
+    CPU tensor before they build anything."""
+    L, R, op, th, mv, bv = _t(*_case(rng, 3, 9, 7))
+    op8 = op.to(torch.int8)
+    before = dict(ops.LAUNCHES)
+    bits, counts = ops.window_join_bits(L, R, op, th)
+    ops.window_join_packed_bits(L, R, op8, th, mv, bv, backend="ref")
+    ops.select_survivors(bits, counts, 7, 5)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.window_join_bits(L, R, op, th, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.window_join_packed_bits(L, R, op8, th, mv, bv, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.select_survivors(bits, counts, 7, 5, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
+        window_join.window_join_bits_cuda(L[None], R[None], op[None], th)
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
+        window_join.window_join_packed_bits_cuda(
+            L[None], R[None], op8[None], th, mv[None], bv[None])
+    with pytest.raises(ValueError, match="on a CUDA device"):
+        window_join.select_survivors_cuda(bits[None], counts[None], 7, 5)
+    assert ops.LAUNCHES == before
 
 
 @pytest.fixture
@@ -253,3 +406,36 @@ def test_cuda_count_all_none_ops_counts_true_extent(C, M, B, cuda_device,
     op = torch.zeros((K, C), dtype=torch.int32, device=cuda_device)
     th = torch.zeros((C,), dtype=torch.float32, device=cuda_device)
     assert ops.window_join_count(L, R, op, th).tolist() == [M * B] * K
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,M,B", [(8, 1000, 333), (32, 257, 1030),
+                                   (9, 65, 40)])
+def test_cuda_bits_and_select_match_plain(C, M, B, cuda_device, rng):
+    """The bit-word joins and the selection kernel against their plain
+    versions at ragged shapes: overflow, a capacity past M*B, and zero
+    survivors."""
+    K = 3
+    cases = [_case(rng, C, M, B) for _ in range(K)]
+    L, R, op, _, mv, bv = (
+        torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda_device)
+        for i in range(6))
+    th = torch.from_numpy(cases[0][3]).to(cuda_device)
+    op8 = op.to(torch.int8)
+    zero = (torch.zeros((K, M, -(-B // 32)), dtype=torch.int32,
+                        device=cuda_device),
+            torch.zeros((K, M), dtype=torch.int32, device=cuda_device))
+    for name, got, want in (
+            ("join", ops.window_join_bits(L, R, op, th),
+             ops.window_join_bits(L, R, op, th, backend="ref")),
+            ("packed", ops.window_join_packed_bits(L, R, op8, th, mv, bv),
+             ops.window_join_packed_bits(L, R, op8, th, mv, bv,
+                                         backend="ref")),
+            ("zero", zero, zero)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                            want[1]), name
+        for cap in (1, 64, M * B + 5):
+            assert torch.equal(
+                ops.select_survivors(*got, B, cap),
+                ops.select_survivors(*got, B, cap, backend="ref")), \
+                (name, cap)
