@@ -12,11 +12,13 @@ Phases (each prints its seconds; any failure exits non-zero):
 3. kernels  — each of the five kernels against its plain PyTorch version
               on the card, bit for bit, at its path's shapes, at ragged
               shapes, over every op code with ties and negative
-              thresholds, and on all-op-0 stacks: the two joins' bit
-              words and row counts, the row and pair counts, and the
-              survivor selection (with overflow, zero survivors and a
-              capacity past M*B); median times (CUDA events) beside each
-              kernel's bound;
+              thresholds, on all-op-0 stacks and on stacks led by the
+              engine's validity rows (tiles that end at the first row):
+              the two joins' bit words and row counts, the row and pair
+              counts, and the survivor selection (with overflow, zero
+              survivors and a capacity past M*B); median times (CUDA
+              events) beside each kernel's bound, and the counts' and the
+              tree join's times on validity-led stacks;
 4. main     — ``repro_torch.cep.open(..., plan="order").run(...)`` on the
               K=16 FlowSense alert rule at full width, with the launch
               counters zeroed just before and read just after; then the
@@ -173,6 +175,49 @@ def unpacked_inputs(gen, k, c, m, b, device):
     return L, R, ops, th
 
 
+def validity_first(args, gen):
+    """``args`` (L, R, ops, thresholds) behind the engine's two validity
+    rows (``core/engine.py::_validity_rows``): row 0 keeps the leading
+    M/8 rows (``l > 1.0 - 0.5``), as the compaction packs live match slots
+    first, so every 32 x 32 tile past them dies at the first row; row 1
+    keeps about 3/4 of the columns (``1.0 < r + 0.5``)."""
+    import torch
+
+    L, R, ops, th = (a.clone() for a in args)
+    k, c, m = L.shape
+    b = R.shape[2]
+    dev = L.device
+    L[:, 0] = (torch.arange(m, device=dev) < m // 8).to(torch.float32)
+    R[:, 0], ops[:, 0], th[0] = 1.0, 2, 0.5
+    if c > 1:
+        L[:, 1] = 1.0
+        R[:, 1] = (torch.rand((k, b), generator=gen, device=dev)
+                   < 0.75).to(torch.float32)
+        ops[:, 1], th[1] = 1, 0.5
+    return L, R, ops, th
+
+
+def check_counts(args, what):
+    """The row count and the pair count against their plain versions; an
+    all-op-0 stack must count B per row and M*B per partition."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    k, c, m = args[0].shape
+    b = args[1].shape[2]
+    for fn in (kops.window_join_rowcount, kops.window_join_count):
+        if not torch.equal(fn(*args), fn(*args, backend="ref")):
+            raise AssertionError(f"{fn.__name__} kernel != plain at "
+                                 f"{(k, c, m, b)} ({what})")
+    if not bool((args[2] == 0).all()):
+        return
+    if not bool((kops.window_join_rowcount(*args) == b).all()):
+        raise AssertionError(f"all-op-0 row count != B at {(k, c, m, b)}")
+    if kops.window_join_count(*args).tolist() != [m * b] * k:
+        raise AssertionError(f"all-op-0 count != M*B at {(k, c, m, b)}")
+
+
 def cuda_ms(fn, reps=10, inner=5):
     """Median ms per call over ``reps`` event-timed runs of ``inner``
     calls each, after a warm-up."""
@@ -327,6 +372,10 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    # The validity-led stacks draw from their own generator, so the timed
+    # inputs below stay the ones earlier runs timed.
+    gen2 = torch.Generator(device=device)
+    gen2.manual_seed(1)
     shapes = [(K_MAIN, c_packed, M_CAP, B_CAP), (3, 5, 1000, 333),
               (2, 32, 257, 129), (1, 1, 1, 1), (4, 64, 37, 1030)]
     n_select = 0
@@ -345,28 +394,21 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
             n_select += 4
     for (k, c, m, b) in [(K_MAIN, c_rowcount, M_CAP, B_CAP)] + shapes[1:]:
         args = rowcount_inputs(gen, k, c, m, b, device)
-        got = kops.window_join_rowcount(*args)
-        want = kops.window_join_rowcount(*args, backend="ref")
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"rowcount kernel != plain at {(k, c, m, b)}")
+        check_counts(args, "mixed ops")
+        check_counts(validity_first(args, gen2), "validity rows first")
     tree_shape = (K_MAIN, c_join, M_CAP, M_CAP)
     for (k, c, m, b) in [tree_shape] + shapes[1:]:
         args = unpacked_inputs(gen, k, c, m, b, device)
         none = (args[0], args[1], torch.zeros_like(args[2]), args[3])
-        for a, what in ((args, "mixed ops"), (none, "all-op-0 stack")):
+        for a, what in ((args, "mixed ops"), (none, "all-op-0 stack"),
+                        (validity_first(args, gen2), "validity rows first")):
             got = kops.window_join_bits(*a)
             if mask_err(got, kops.window_join_bits(*a, backend="ref")) != 0:
                 raise AssertionError(f"join kernel != plain at "
                                      f"{(k, c, m, b)} ({what})")
-            if not torch.equal(kops.window_join_count(*a),
-                               kops.window_join_count(*a, backend="ref")):
-                raise AssertionError(f"count kernel != plain at "
-                                     f"{(k, c, m, b)} ({what})")
+            check_counts(a, what)
             check_select(*got, b, (1, M_CAP, m * b + 7), what)
             n_select += 3
-        if kops.window_join_count(*none).tolist() != [m * b] * k:
-            raise AssertionError(f"all-op-0 count != M*B at {(k, c, m, b)}")
     # Zero survivors, and about one survivor per row at the tree shape.
     k, _, m, b = tree_shape
     zero = (torch.zeros((k, m, -(-b // 32)), dtype=torch.int32,
@@ -379,9 +421,10 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
     n_select += 5
     print(f"   bit-identical to the plain versions at {len(shapes)} packed, "
           f"{len(shapes)} rowcount and {len(shapes)} join/count shapes (all "
-          "op codes, ties, negative thresholds, all-none stacks; all-op-0 "
-          f"counts == M*B) and in {n_select} selections (overflow, zero "
-          "survivors, capacity past M*B, ragged B)")
+          "op codes, ties, negative thresholds, all-none stacks, validity "
+          "rows first; all-op-0 counts == B per row, M*B) and in "
+          f"{n_select} selections (overflow, zero survivors, capacity past "
+          "M*B, ragged B)")
 
     records = {}
     p_args = packed_inputs(gen, K_MAIN, c_packed, M_CAP, B_CAP, device)
@@ -415,6 +458,18 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
               f"({bound_by}), max_abs_err {err}")
         records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
+    # The counts beside the tree join on path-like stacks: the validity
+    # rows first, 1/8 of the match slots live.
+    g_u = validity_first(u_args, gen2)
+    for name, fn, args in (
+            ("window_join_rowcount", kops.window_join_rowcount,
+             validity_first(r_args, gen2)),
+            ("window_join", kops.window_join_bits, g_u),
+            ("window_join_count", kops.window_join_count, g_u)):
+        ms = cuda_ms(lambda: fn(*args))
+        print(f"   {name} (K, C, M, B)="
+              f"{tuple(args[0].shape) + (args[1].shape[2],)}, validity rows "
+              f"first (1/8 of M live): kernel {ms:.4f} ms")
     # The selection at the order path's shape, from the packed join.
     p_out = kops.window_join_packed_bits(*p_args)
     o_ms = cuda_ms(lambda: kops.select_survivors(*p_out, B_CAP, M_CAP))

@@ -10,13 +10,17 @@
 // changes comparisons): every kernel is bit-identical to its plain
 // PyTorch version in repro_torch/kernels/ref.py.
 //
-// The two joins that feed a compaction (packed_kernel, join_kernel) emit
-// the mask as bit words, (K, M, ceil(B/32)) int32 with bit j of word w in
-// row m the cell b = 32 w + j (tail bits past B are 0), plus each row's
-// survivor count (K, M) int32.  select_kernel turns those into the
-// row-major survivor indices of a fixed-size compaction, reading only the
-// rows that hold a survivor below the capacity: no byte or int32 per cell
-// reaches device memory.
+// Four kernels share one body (strip_body): a block evaluates a strip of
+// 32 rows of one partition against all of B, and its epilogue is chosen at
+// compile time.  The two joins that feed a compaction (packed_kernel,
+// join_kernel) emit the mask as bit words, (K, M, ceil(B/32)) int32 with
+// bit j of word w in row m the cell b = 32 w + j (tail bits past B are 0),
+// plus each row's survivor count (K, M) int32.  rowcount_kernel emits the
+// row counts alone and count_kernel one total per partition.
+// select_kernel turns a join's words and counts into the row-major
+// survivor indices of a fixed-size compaction, reading only the rows that
+// hold a survivor below the capacity: no byte or int32 per cell reaches
+// device memory.
 //
 // The launchers have a plain C interface (loaded with ctypes by
 // repro_torch/kernels/window_join.py).  Each launches on the caller's stream,
@@ -32,87 +36,88 @@ namespace {
 // Widest constraint stack the launchers accept (shared-memory staging).
 constexpr int kMaxC = 64;
 
-// The unpacked op dispatch of ref.cmp_op: 1 lt, 2 gt, 3 abs, any other op
-// true.  Ops are uniform across a block (one partition), so the branches
-// never diverge within a warp.
-__device__ __forceinline__ bool cmp_unpacked(int op, float l, float r,
-                                             float th) {
-  if (op == 1) return l < r + th;
-  if (op == 2) return l > r - th;
-  if (op == 3) return fabsf(l - r) <= th;
-  return true;
-}
-
-// Stages partition k's (C, bm) L strip from column m0, (C, bb) R strip
-// from column b0, its ops (K, C) and the shared thresholds (C,) into
-// shared memory; columns past the true extents read as 0.  The caller
-// synchronises.
-__device__ __forceinline__ void stage_unpacked(
-    const float* __restrict__ L, const float* __restrict__ R,
-    const int32_t* __restrict__ ops, const float* __restrict__ thetas,
-    float* sL, float* sR, float* sTh, int* sOp, int k, int C, int M, int B,
-    int m0, int bm, int b0, int bb, int tid, int nthreads) {
-  const float* Lk = L + static_cast<size_t>(k) * C * M;
-  const float* Rk = R + static_cast<size_t>(k) * C * B;
-  for (int i = tid; i < C * bb; i += nthreads) {
-    const int c = i / bb, b = b0 + i % bb;
-    sR[i] = b < B ? Rk[static_cast<size_t>(c) * B + b] : 0.0f;
-  }
-  for (int i = tid; i < C * bm; i += nthreads) {
-    const int c = i / bm, m = m0 + i % bm;
-    sL[i] = m < M ? Lk[static_cast<size_t>(c) * M + m] : 0.0f;
-  }
-  for (int i = tid; i < C; i += nthreads) {
-    sTh[i] = thetas[i];
-    sOp[i] = ops[static_cast<size_t>(k) * C + i];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Bit-word joins: packed_kernel (order steps) and join_kernel (tree steps)
+// The strip body: packed_kernel, join_kernel, rowcount_kernel, count_kernel
 // ---------------------------------------------------------------------------
 //
 // packed_kernel replaces: src/repro/kernels/window_join.py,
 // window_join_packed_pallas / _packed_kernel (the pallas_call at :295):
 //   ok[k, m, b] = mv[k, m] & bv[k, b] & AND_c sel_c, with
 //   sel_c = (lt & op==1) | (gt & op==2) | (ab & op==3) | (op==0)
-//   (int8 op codes outside 0..3 select nothing).
+//   (int8 op codes outside 0..3 select nothing).  Out: bit words and row
+//   counts.
 // join_kernel replaces: src/repro/kernels/window_join.py,
 // window_join_pallas / _kernel (the pallas_call at :120):
-//   ok[k, m, b] = AND_c cmp_unpacked(op[k, c], L, R, th[c])
-//   (validity enters as two ordinary f32 rows; ops outside 1..3 are true).
+//   ok[k, m, b] = AND_c cmp(op[k, c], L, R, th[c]) with the unpacked
+//   dispatch of ref.cmp_op (1 lt, 2 gt, 3 abs, any other code true;
+//   validity enters as two ordinary f32 rows).  Out: bit words and row
+//   counts.
+// rowcount_kernel replaces: src/repro/kernels/window_join.py,
+// window_join_rowcount_pallas / _rowcount_kernel (the pallas_call at
+// :383):
+//   cnt[k, m] = sum_{b < B} ok[k, m, b] with join_kernel's ok.  Out: row
+//   counts (K, M) int32 only.  Op codes outside 0..3: the JAX package's
+//   reference (window_join_rowcount_ref, through cmp_op) takes them as
+//   true, its Pallas _rowcount_kernel (:342-343, the packed dispatch) as
+//   selecting nothing.  The engines emit only 0..3 (PRED_*,
+//   src/repro/core/patterns.py:35-38), so no system result differs; this
+//   kernel follows cmp_op.
+// count_kernel replaces: src/repro/kernels/window_join.py,
+// window_join_count_pallas / _count_kernel (the pallas_call at :202):
+//   cnt[k] = sum_{m < M, b < B} ok[k, m, b] with join_kernel's ok.  Out:
+//   (K,) int32, which the caller zeroes.
 //
-// Both write bit words (K, M, W = ceil(B/32)) int32 and row counts (K, M)
-// int32: the TPU kernel's mask plus the count the compaction needs.
+// Bound on the H100: operations, for all four.  Per (cell, active row)
+// one f32 compare (abs: a subtract too) and the AND, plus the count's add
+// per cell; the bytes are the (C, M) + (C, B) operand strips and the
+// outputs -- M*W/8 of a byte-mask's M*B bytes for the words, M or 1 ints
+// per partition for the counts.  At the paths' shapes (chip_smoke.py's
+// *_bound): rowcount (16, 6, 8192, 1024) 0.023 ms, join and count
+// (16, 9, 8192, 8192) 0.258 and 0.274 ms, packed (16, 8, 8192, 1024)
+// 0.009 ms.
 //
-// Bound on the H100: operations.  Per (cell, active row) one f32 compare
-// (abs: a subtract too) and the AND; the bytes are the (C, M) + (C, B)
-// operand strips, M*W/8 of a byte-mask's M*B bytes, and the counts.
+// Design against that bound: make each (cell, row) cost about two
+// instructions and skip what cannot survive.  A block owns a strip of
+// kStripM = 32 rows of one partition and walks all of B, its kBitsWarps
+// warps taking interleaved 32-column words.  A lane holds one column b and
+// a 32-bit accumulator with one bit per row of the strip, so the row loop
+// is unrolled in registers: per constraint row c the block-uniform op is
+// branched on once (no per-cell dispatch), the lane's R value (and r + th
+// or r - th, the same f32 sums the literal forms compute) sits in a
+// register, and the strip's 32 L values are read as 8 broadcast float4
+// loads from shared memory.  R values are read coalesced straight into
+// registers kCGroup rows at a time (C <= 16 covers every path in one
+// group; wider stacks up to kMaxC loop over groups); at the row count's
+// shape R is 24 KB per partition and stays in L2, so no cp.async / TMA
+// stage is kept for it.  When no cell of the warp's 32 x 32 tile survives,
+// the remaining rows are skipped (a uniform vote) -- on the engine's
+// stacks the validity rows come first, so tiles of empty match slots end
+// at the first row.  Rows past M start the accumulator at 0 and columns
+// past B are never set, so ragged edges are masked by index: an all-op-0
+// stack counts exactly B per row and M*B per partition.
 //
-// Design.  A block owns a strip of kStripM = 32 rows of one partition and
-// walks all of B, its kBitsWarps warps taking interleaved 32-column words.
-// A lane holds one column b and a 32-bit accumulator with one bit per row
-// of the strip, so the row loop is unrolled in registers: per constraint
-// row c the block-uniform op is branched on once (no per-cell dispatch),
-// the lane's R value (and r + th or r - th, the same f32 sums the literal
-// forms compute) sits in a register, and the strip's 32 L values are read
-// as 8 broadcast float4 loads from shared memory.  R values are loaded
-// kCGroup rows at a time into registers (C <= 16 covers both paths in one
-// group; wider stacks up to kMaxC loop over groups).  When no cell of the
-// warp's 32 x 32 tile survives, the remaining rows are skipped (a uniform
-// vote) -- on the engine's stacks the validity rows come first.  A 5-step
-// shuffle transpose turns the lanes' column accumulators into row words
-// (lane i: row m0 + i), whose __popc is the row's survivor count among the
-// warp's columns; the words go through a padded shared tile so each row's
-// kBitsWarps words are stored contiguously, and the per-warp counts are
-// summed in shared memory at the end: exact integer sums, no atomics.
-// Left for later: a cp.async / TMA pipeline for the R words, and fusing
-// the selection into the join so the bit words never leave the SM.
+// The epilogues (Out):
+// - kBitsAndRows: a 5-step shuffle transpose turns the lanes' column
+//   accumulators into row words (lane i: row m0 + i), whose __popc is the
+//   row's survivor count among the warp's columns; the words go through a
+//   padded shared tile so each row's kBitsWarps words are stored
+//   contiguously (two barriers per word group).
+// - kRows: the same transpose and __popc, but no word is stored, so there
+//   is no tile and no barrier: each warp walks its words on its own.
+// - kTotal: no transpose either: a lane adds the __popc of its column
+//   accumulator, and the block's sum goes to the partition's total with
+//   one int32 atomicAdd per strip (exact in any block order).
+// Row counts are per-warp partials summed in shared memory at the end:
+// exact integer sums, no atomics.
+// Left for later: fusing the selection into the join so the bit words
+// never leave the SM.
 
 constexpr int kStripM = 32;    // rows per block: one accumulator bit each
 constexpr int kBitsWarps = 8;  // warps per block, interleaved over words
 constexpr int kCGroup = 16;    // R values a lane holds in registers
 constexpr unsigned kFull = 0xffffffffu;
+
+enum class Out { kBitsAndRows, kRows, kTotal };
 
 // On entry bit i of lane l's x is A[l][i]; on return it is A[i][l].
 __device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
@@ -166,26 +171,66 @@ __device__ __forceinline__ unsigned join_row(unsigned acc, int op,
   return acc;  // op 0, or (unpacked) any other code: true
 }
 
-template <typename OpT, bool kPacked>
-__device__ __forceinline__ void bits_body(
+// The accumulator of column b (this lane's) against the strip: bit i is
+// set iff cell (m0 + i, b) survives every constraint row.  Warp-uniform
+// control: every lane of the warp calls it.
+template <bool kPacked>
+__device__ __forceinline__ unsigned column(const float* __restrict__ Rk,
+                                           const uint8_t* __restrict__ bvk,
+                                           const float* sL, const float* sTh,
+                                           const int* sOp, unsigned init,
+                                           int C, int B, int b) {
+  unsigned acc = 0;
+  if (b < B) acc = (!kPacked || bvk[b] != 0) ? init : 0u;
+  for (int c0 = 0; c0 < C && __any_sync(kFull, acc); c0 += kCGroup) {
+    float rv[kCGroup];
+#pragma unroll
+    for (int j = 0; j < kCGroup; ++j) {
+      rv[j] = (c0 + j < C && b < B) ? Rk[static_cast<size_t>(c0 + j) * B + b]
+                                    : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kCGroup; ++j) {
+      const int c = c0 + j;
+      if (c >= C || !__any_sync(kFull, acc)) break;
+      acc = join_row<kPacked>(acc, sOp[c], sL + c * kStripM, rv[j], sTh[c]);
+    }
+  }
+  return acc;
+}
+
+// Shared memory of a strip block: L strip, thresholds, ops, the per-warp
+// partials and (bit words only) the padded word tile.
+template <Out kOut>
+size_t strip_smem(int C) {
+  return static_cast<size_t>(C) * (kStripM + 2) * sizeof(float) +
+         kBitsWarps * 32 * sizeof(int) +
+         (kOut == Out::kBitsAndRows
+              ? kStripM * (kBitsWarps + 1) * sizeof(unsigned)
+              : 0);
+}
+
+template <typename OpT, bool kPacked, Out kOut>
+__device__ __forceinline__ void strip_body(
     const float* __restrict__ L, const float* __restrict__ R,
     const OpT* __restrict__ ops, const float* __restrict__ thetas,
     const uint8_t* __restrict__ mvalid, const uint8_t* __restrict__ bvalid,
     int32_t* __restrict__ bits, int32_t* __restrict__ counts, int C, int M,
     int B, int W) {
   extern __shared__ float4 smem4[];
-  float* sL = reinterpret_cast<float*>(smem4);           // (C, kStripM)
-  unsigned* tile =
-      reinterpret_cast<unsigned*>(sL + C * kStripM);     // (32, warps + 1)
-  int* part = reinterpret_cast<int*>(tile + kStripM * (kBitsWarps + 1));
-  float* sTh = reinterpret_cast<float*>(part + kBitsWarps * 32);  // (C,)
+  float* sL = reinterpret_cast<float*>(smem4);                    // (C, 32)
+  float* sTh = sL + C * kStripM;                                  // (C,)
   int* sOp = reinterpret_cast<int*>(sTh + C);                     // (C,)
+  int* part = sOp + C;                                  // (kBitsWarps, 32)
+  unsigned* tile = reinterpret_cast<unsigned*>(part + kBitsWarps * 32);
 
   const int k = blockIdx.z;
   const int m0 = blockIdx.x * kStripM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* Lk = L + static_cast<size_t>(k) * C * M;
   const float* Rk = R + static_cast<size_t>(k) * C * B;
+  const uint8_t* bvk = kPacked ? bvalid + static_cast<size_t>(k) * B
+                               : nullptr;
   for (int i = threadIdx.x; i < C * kStripM; i += blockDim.x) {
     const int c = i / kStripM, m = m0 + i % kStripM;
     sL[i] = m < M ? Lk[static_cast<size_t>(c) * M + m] : 0.0f;
@@ -194,55 +239,44 @@ __device__ __forceinline__ void bits_body(
     sTh[i] = thetas[i];
     sOp[i] = static_cast<int>(ops[static_cast<size_t>(k) * C + i]);
   }
-  unsigned init = kFull;  // rows of the strip a cell may survive in
-  if (kPacked) {
-    const int m = m0 + lane;
-    init = __ballot_sync(
-        kFull, m < M && mvalid[static_cast<size_t>(k) * M + m] != 0);
-  }
+  // Rows of the strip a cell may survive in: below M and (packed) valid.
+  const int m = m0 + lane;
+  const unsigned init = __ballot_sync(
+      kFull,
+      m < M && (!kPacked || mvalid[static_cast<size_t>(k) * M + m] != 0));
   __syncthreads();
 
-  int cnt = 0;  // survivors of row m0 + lane among this warp's words
-  for (int w0 = 0; w0 < W; w0 += kBitsWarps) {
-    const int w = w0 + warp;
-    unsigned acc = 0;  // bit i: cell (m0 + i, b) survives so far
-    if (w < W) {       // warp-uniform
-      const int b = w * 32 + lane;
-      if (b < B) {
-        acc = (!kPacked || bvalid[static_cast<size_t>(k) * B + b] != 0)
-                  ? init
-                  : 0u;
-      }
-      for (int c0 = 0; c0 < C; c0 += kCGroup) {
-        float rv[kCGroup];
-#pragma unroll
-        for (int j = 0; j < kCGroup; ++j) {
-          rv[j] = (c0 + j < C && b < B)
-                      ? Rk[static_cast<size_t>(c0 + j) * B + b]
-                      : 0.0f;
-        }
-#pragma unroll
-        for (int j = 0; j < kCGroup; ++j) {
-          const int c = c0 + j;
-          if (c >= C || !__any_sync(kFull, acc)) break;
-          acc = join_row<kPacked>(acc, sOp[c], sL + c * kStripM, rv[j],
-                                  sTh[c]);
+  // kBitsAndRows, kRows: survivors of row m0 + lane among this warp's
+  // words; kTotal: survivors in this lane's columns.
+  int cnt = 0;
+  if (kOut == Out::kBitsAndRows) {
+    for (int w0 = 0; w0 < W; w0 += kBitsWarps) {
+      const int w = w0 + warp;
+      const unsigned acc =  // w is warp-uniform
+          w < W ? column<kPacked>(Rk, bvk, sL, sTh, sOp, init, C, B,
+                                  w * 32 + lane)
+                : 0u;
+      const unsigned word = transpose32(acc, lane);  // lane i: row m0 + i
+      cnt += __popc(word);
+      tile[lane * (kBitsWarps + 1) + warp] = word;
+      __syncthreads();
+      {
+        const int row = threadIdx.x / kBitsWarps;
+        const int q = threadIdx.x % kBitsWarps;
+        const int mm = m0 + row, ww = w0 + q;
+        if (mm < M && ww < W) {
+          bits[(static_cast<size_t>(k) * M + mm) * W + ww] =
+              static_cast<int32_t>(tile[row * (kBitsWarps + 1) + q]);
         }
       }
+      __syncthreads();  // the tile is consumed before the next words
     }
-    const unsigned word = transpose32(acc, lane);  // lane i: row m0 + i
-    cnt += __popc(word);
-    tile[lane * (kBitsWarps + 1) + warp] = word;
-    __syncthreads();
-    {
-      const int row = threadIdx.x / kBitsWarps, q = threadIdx.x % kBitsWarps;
-      const int m = m0 + row, ww = w0 + q;
-      if (m < M && ww < W) {
-        bits[(static_cast<size_t>(k) * M + m) * W + ww] =
-            static_cast<int32_t>(tile[row * (kBitsWarps + 1) + q]);
-      }
+  } else {
+    for (int w = warp; w < W; w += kBitsWarps) {
+      const unsigned acc =
+          column<kPacked>(Rk, bvk, sL, sTh, sOp, init, C, B, w * 32 + lane);
+      cnt += __popc(kOut == Out::kRows ? transpose32(acc, lane) : acc);
     }
-    __syncthreads();  // the tile is consumed before the next words
   }
   part[warp * 32 + lane] = cnt;
   __syncthreads();
@@ -250,8 +284,16 @@ __device__ __forceinline__ void bits_body(
     int total = 0;
 #pragma unroll
     for (int q = 0; q < kBitsWarps; ++q) total += part[q * 32 + threadIdx.x];
-    const int m = m0 + threadIdx.x;
-    if (m < M) counts[static_cast<size_t>(k) * M + m] = total;
+    if (kOut == Out::kTotal) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        total += __shfl_down_sync(kFull, total, off);
+      }
+      if (threadIdx.x == 0 && total != 0) atomicAdd(counts + k, total);
+    } else {
+      const int mm = m0 + threadIdx.x;
+      if (mm < M) counts[static_cast<size_t>(k) * M + mm] = total;
+    }
   }
 }
 
@@ -263,8 +305,9 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                   const uint8_t* __restrict__ bvalid,
                   int32_t* __restrict__ bits, int32_t* __restrict__ counts,
                   int C, int M, int B, int W) {
-  bits_body<int8_t, true>(L, R, ops, thetas, mvalid, bvalid, bits, counts,
-                          C, M, B, W);
+  strip_body<int8_t, true, Out::kBitsAndRows>(L, R, ops, thetas, mvalid,
+                                              bvalid, bits, counts, C, M, B,
+                                              W);
 }
 
 __global__ void __launch_bounds__(kBitsWarps * 32)
@@ -273,14 +316,29 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                 const float* __restrict__ thetas,
                 int32_t* __restrict__ bits, int32_t* __restrict__ counts,
                 int C, int M, int B, int W) {
-  bits_body<int32_t, false>(L, R, ops, thetas, nullptr, nullptr, bits,
-                            counts, C, M, B, W);
+  strip_body<int32_t, false, Out::kBitsAndRows>(
+      L, R, ops, thetas, nullptr, nullptr, bits, counts, C, M, B, W);
 }
 
-size_t bits_smem(int C) {
-  return static_cast<size_t>(C) * (kStripM + 2) * sizeof(float) +
-         kStripM * (kBitsWarps + 1) * sizeof(unsigned) +
-         kBitsWarps * 32 * sizeof(int);
+__global__ void __launch_bounds__(kBitsWarps * 32)
+    rowcount_kernel(const float* __restrict__ L, const float* __restrict__ R,
+                    const int32_t* __restrict__ ops,
+                    const float* __restrict__ thetas,
+                    int32_t* __restrict__ counts, int C, int M, int B,
+                    int W) {
+  strip_body<int32_t, false, Out::kRows>(L, R, ops, thetas, nullptr,
+                                         nullptr, nullptr, counts, C, M, B,
+                                         W);
+}
+
+__global__ void __launch_bounds__(kBitsWarps * 32)
+    count_kernel(const float* __restrict__ L, const float* __restrict__ R,
+                 const int32_t* __restrict__ ops,
+                 const float* __restrict__ thetas,
+                 int32_t* __restrict__ total, int C, int M, int B, int W) {
+  strip_body<int32_t, false, Out::kTotal>(L, R, ops, thetas, nullptr,
+                                          nullptr, nullptr, total, C, M, B,
+                                          W);
 }
 
 // ---------------------------------------------------------------------------
@@ -351,157 +409,9 @@ __global__ void __launch_bounds__(kSelectWarps * 32)
   }
 }
 
-
-// ---------------------------------------------------------------------------
-// Row count
-// ---------------------------------------------------------------------------
-//
-// Replaces: src/repro/kernels/window_join.py, window_join_rowcount_pallas /
-// _rowcount_kernel (the pallas_call at :383).
-//
-// cnt[k, m] = sum_{b < B} AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], th[c])
-// with the unpacked op dispatch of ref.cmp_op (1 lt, 2 gt, 3 abs, else
-// true).  The (M, B) mask is never stored.
-//
-// Bound on the H100: operations, C compare-selects per (m, b) cell plus
-// the count; it reads only (C, M) + (C, B) floats and writes M ints.  The
-// TPU kernel accumulates across a sequential j grid; Hopper blocks run in
-// no order, so here one warp owns one (k, m) row and loops over all of B
-// itself: lanes stride over b, each block stages a (C, kRowTileB) R tile
-// in shared memory for its kRowsPerBlock warps, and the 32 lane partials
-// are reduced with __shfl_down_sync.  Integer sums are exact in any order,
-// so there are no atomics and no second pass.
-// Left for later: several rows per warp to reuse each staged R value from
-// registers, and a double-buffered (cp.async / TMA) R tile pipeline.
-
-constexpr int kRowsPerBlock = 8;  // warps per block, one (k, m) row each
-constexpr int kRowTileB = 128;    // b per staged R tile
-
-__global__ void rowcount_kernel(const float* __restrict__ L,
-                                const float* __restrict__ R,
-                                const int32_t* __restrict__ ops,
-                                const float* __restrict__ thetas,
-                                int32_t* __restrict__ out,
-                                int C, int M, int B) {
-  extern __shared__ float smem[];
-  float* sR = smem;                                    // (C, kRowTileB)
-  float* sL = sR + C * kRowTileB;                      // (C, kRowsPerBlock)
-  float* sTh = sL + C * kRowsPerBlock;                 // (C,)
-  int* sOp = reinterpret_cast<int*>(sTh + C);          // (C,)
-
-  const int k = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * kRowsPerBlock;
-  const int m = m0 + warp;
-  const float* Lk = L + static_cast<size_t>(k) * C * M;
-  const float* Rk = R + static_cast<size_t>(k) * C * B;
-
-  for (int i = threadIdx.x; i < C * kRowsPerBlock; i += blockDim.x) {
-    const int c = i / kRowsPerBlock, mm = m0 + i % kRowsPerBlock;
-    sL[i] = mm < M ? Lk[static_cast<size_t>(c) * M + mm] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    sTh[i] = thetas[i];
-    sOp[i] = ops[static_cast<size_t>(k) * C + i];
-  }
-
-  int cnt = 0;
-  for (int b0 = 0; b0 < B; b0 += kRowTileB) {
-    __syncthreads();  // the previous tile is consumed (and sL/sOp written)
-    for (int i = threadIdx.x; i < C * kRowTileB; i += blockDim.x) {
-      const int c = i / kRowTileB, b = b0 + i % kRowTileB;
-      sR[i] = b < B ? Rk[static_cast<size_t>(c) * B + b] : 0.0f;
-    }
-    __syncthreads();
-    if (m < M) {
-      for (int j = lane; j < kRowTileB && b0 + j < B; j += 32) {
-        bool acc = true;
-        for (int c = 0; c < C; ++c) {
-          acc = acc & cmp_unpacked(sOp[c], sL[c * kRowsPerBlock + warp],
-                                   sR[c * kRowTileB + j], sTh[c]);
-        }
-        cnt += acc ? 1 : 0;
-      }
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  }
-  if (lane == 0 && m < M) out[static_cast<size_t>(k) * M + m] = cnt;
-}
-
-// ---------------------------------------------------------------------------
-// Pair count
-// ---------------------------------------------------------------------------
-//
-// Replaces: src/repro/kernels/window_join.py, window_join_count_pallas /
-// _count_kernel (the pallas_call at :202).
-//
-// cnt[k] = sum_{m < M, b < B} AND_c cmp(op[k, c], L[k, c, m], R[k, c, b],
-// th[c]) — the total of join_kernel's mask, which is never stored.
-//
-// Bound on the H100: operations, 3 f32 operations per active row of each
-// cell plus the count; it reads (C, M) + (C, B) floats and writes K ints.
-// The TPU kernel writes one partial per tile and the wrapper sums them.
-// Hopper blocks run in no order, so each block reduces its (kCountBM,
-// kCountBB) tile itself — warp shuffles, then one partial per warp in
-// shared memory — and adds it to the zeroed (K,) output with one int32
-// atomicAdd.  Integer atomics are exact, so the total does not depend on
-// the order of the blocks.  Each thread walks kCountBM / kCountTY rows of
-// m against its one b, which cuts the atomics to one per 4096 cells.  Cells
-// at or past the true extents are masked by index: a stack of op-0 rows
-// counts exactly M * B.
-
-constexpr int kCountBB = 128;  // b per block (threadIdx.x)
-constexpr int kCountTY = 4;    // threadIdx.y
-constexpr int kCountBM = 32;   // m per block
-constexpr int kCountWarps = kCountBB * kCountTY / 32;
-
-__global__ void count_kernel(const float* __restrict__ L,
-                             const float* __restrict__ R,
-                             const int32_t* __restrict__ ops,
-                             const float* __restrict__ thetas,
-                             int32_t* __restrict__ out,
-                             int C, int M, int B, int n_btiles) {
-  extern __shared__ float smem[];
-  float* sL = smem;                                    // (C, kCountBM)
-  float* sR = sL + C * kCountBM;                       // (C, kCountBB)
-  float* sTh = sR + C * kCountBB;                      // (C,)
-  int* sOp = reinterpret_cast<int*>(sTh + C);          // (C,)
-  __shared__ int warp_sums[kCountWarps];
-
-  const int k = blockIdx.z;
-  const int m0 = (blockIdx.x / n_btiles) * kCountBM;
-  const int b0 = (blockIdx.x % n_btiles) * kCountBB;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  stage_unpacked(L, R, ops, thetas, sL, sR, sTh, sOp, k, C, M, B, m0,
-                 kCountBM, b0, kCountBB, tid, blockDim.x * blockDim.y);
-  __syncthreads();
-
-  int cnt = 0;
-  if (b0 + static_cast<int>(threadIdx.x) < B) {
-    for (int i = threadIdx.y; i < kCountBM && m0 + i < M; i += kCountTY) {
-      bool acc = true;
-      for (int c = 0; c < C; ++c) {
-        acc = acc & cmp_unpacked(sOp[c], sL[c * kCountBM + i],
-                                 sR[c * kCountBB + threadIdx.x], sTh[c]);
-      }
-      cnt += acc ? 1 : 0;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  }
-  if (tid % 32 == 0) warp_sums[tid / 32] = cnt;
-  __syncthreads();
-  if (tid < 32) {
-    int v = tid < kCountWarps ? warp_sums[tid] : 0;
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    }
-    if (tid == 0 && v != 0) atomicAdd(out + k, v);
-  }
+// The grid of a strip launch: one block per 32-row strip of each partition.
+dim3 strip_grid(int K, int M) {
+  return dim3((M + kStripM - 1) / kStripM, 1, K);
 }
 
 }  // namespace
@@ -522,8 +432,8 @@ int wj_packed(const void* L, const void* R, const void* ops,
               void* bits, void* counts, int K, int C, int M, int B,
               void* stream) {
   if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + kStripM - 1) / kStripM, 1, K);
-  packed_kernel<<<grid, kBitsWarps * 32, bits_smem(C),
+  packed_kernel<<<strip_grid(K, M), kBitsWarps * 32,
+                  strip_smem<Out::kBitsAndRows>(C),
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int8_t*>(ops), static_cast<const float*>(thetas),
@@ -539,18 +449,14 @@ int wj_rowcount(const void* L, const void* R, const void* ops,
                 const void* thetas, void* out, int K, int C, int M, int B,
                 void* stream) {
   if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock, 1, K);
-  const dim3 block(32 * kRowsPerBlock);
-  const size_t smem =
-      static_cast<size_t>(C) *
-      ((kRowTileB + kRowsPerBlock + 1) * sizeof(float) + sizeof(int));
-  rowcount_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  rowcount_kernel<<<strip_grid(K, M), kBitsWarps * 32,
+                    strip_smem<Out::kRows>(C),
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int32_t*>(ops), static_cast<const float*>(thetas),
-      static_cast<int32_t*>(out), C, M, B);
+      static_cast<int32_t*>(out), C, M, B, (B + 31) / 32);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32
 // -> bits (K,M,ceil(B/32)) i32, counts (K,M) i32.
@@ -558,8 +464,8 @@ int wj_join(const void* L, const void* R, const void* ops,
             const void* thetas, void* bits, void* counts, int K, int C,
             int M, int B, void* stream) {
   if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + kStripM - 1) / kStripM, 1, K);
-  join_kernel<<<grid, kBitsWarps * 32, bits_smem(C),
+  join_kernel<<<strip_grid(K, M), kBitsWarps * 32,
+                strip_smem<Out::kBitsAndRows>(C),
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int32_t*>(ops), static_cast<const float*>(thetas),
@@ -588,19 +494,13 @@ int wj_count(const void* L, const void* R, const void* ops,
              const void* thetas, void* out, int K, int C, int M, int B,
              void* stream) {
   if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_btiles = (B + kCountBB - 1) / kCountBB;
-  const int n_mtiles = (M + kCountBM - 1) / kCountBM;
-  const dim3 grid(n_mtiles * n_btiles, 1, K);
-  const dim3 block(kCountBB, kCountTY);
-  const size_t smem =
-      static_cast<size_t>(C) *
-      ((kCountBM + kCountBB + 1) * sizeof(float) + sizeof(int));
-  count_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  count_kernel<<<strip_grid(K, M), kBitsWarps * 32,
+                 strip_smem<Out::kTotal>(C),
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int32_t*>(ops), static_cast<const float*>(thetas),
-      static_cast<int32_t*>(out), C, M, B, n_btiles);
+      static_cast<int32_t*>(out), C, M, B, (B + 31) / 32);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 }  // extern "C"

@@ -105,6 +105,13 @@ def window_join_rowcount_ref(L, R, ops, thetas):
 
     Feeds the negation veto (cnt > 0) and Kleene companion counts
     (cnt - 1) of the engine's finalize pass.  Returns (..., M) int32.
+
+    Op codes outside 0..3 count as true, through ``cmp_op``, as in the JAX
+    package's ``window_join_rowcount_ref``.  That package's Pallas
+    ``_rowcount_kernel`` takes the packed dispatch instead and selects
+    nothing for them; the engines emit only codes 0..3, so no engine
+    result differs, and the port (plain version and CUDA kernel) follows
+    ``cmp_op``.
     """
     return window_join_ref(L, R, ops, thetas).sum(dim=-1, dtype=torch.int32)
 

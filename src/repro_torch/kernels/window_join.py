@@ -22,11 +22,14 @@ Five kernels, written by hand for Hopper in ``csrc/window_join.cu``:
   ``out_cap`` survivors, ``M * B`` after the last one.  It reads only the
   rows that hold a survivor below ``out_cap``.
 * ``window_join_rowcount_cuda`` replaces ``window_join_rowcount_pallas``:
-  per-row counts ``(K, M)`` int32 for the negation veto and the Kleene
-  count; the mask is never stored.
+  per-row counts ``(K, M)`` int32 of the unpacked join's mask for the
+  negation veto and the Kleene count; the mask is never stored.
 * ``window_join_count_cuda`` replaces ``window_join_count_pallas``: the
   total of the unpacked mask per partition, ``(K,)`` int32; the mask is
   never stored.
+
+The two joins and the two counts are one kernel body that evaluates
+32-row strips in registers; only what each writes differs.
 
 ``window_join_packed_cuda`` and ``window_join_cuda`` give the bool mask of
 the two bit-word joins (unpacked from their words) for callers that want
@@ -163,7 +166,10 @@ def _check(name, t, dtype, shape, device):
 
 
 def _as_u8(t):
-    return t.view(torch.uint8) if t.dtype == torch.bool else t
+    """A validity vector as the uint8 bytes the kernel tests for != 0:
+    bool and int8 (the JAX package's packed strips) are viewed, not
+    copied."""
+    return t.view(torch.uint8) if t.dtype in (torch.bool, torch.int8) else t
 
 
 def _dims(L, R):
@@ -178,10 +184,11 @@ def _dims(L, R):
     if C > lib.wj_max_c():
         raise ValueError(f"C={C} constraint rows exceed the kernel's "
                          f"limit of {lib.wj_max_c()}")
-    # grid.z holds K; grid.x the widest launch's blocks: the pair count's
-    # (32, 128) tiles or the row count's and selection's 8-row blocks (the
-    # bit-word joins take 32-row strips).
-    if K >= 65536 or max(-(-M // 8), -(-M // 32) * -(-B // 128)) >= 2 ** 31:
+    # grid.z holds K; grid.x the ceil(M/32) 32-row strips of the joins and
+    # counts (the selection on a join's output, ceil(M/8) 8-row blocks).
+    # M and B reach the launchers as C ints, so both grids fit whenever M
+    # does.
+    if K >= 65536 or max(M, B) >= 2 ** 31:
         raise ValueError(f"shape (K={K}, M={M}, B={B}) exceeds the grid")
     return lib, (K, C, M, B)
 
@@ -205,8 +212,8 @@ def window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid, bvalid):
     ``(K, M, ceil(B/32))`` int32 and ``(K, M)`` int32.
 
     L: (K, C, M) f32, R: (K, C, B) f32, ops8: (K, C) int8, thetas: (C,)
-    f32, mvalid: (K, M), bvalid: (K, B) uint8 or bool; all contiguous on
-    one CUDA device.
+    f32, mvalid: (K, M), bvalid: (K, B) int8, uint8 or bool (nonzero is
+    valid, as in the plain version); all contiguous on one CUDA device.
     """
     lib, (K, C, M, B) = _dims(L, R)
     dev = L.device

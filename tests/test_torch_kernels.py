@@ -102,6 +102,28 @@ def test_rowcount_plain_matches_jax(C, M, B, rng):
     assert (got_ops == want_ref).all()
 
 
+def test_rowcount_unknown_op_codes_count_as_true(rng):
+    """Op codes outside 0..3 (4 and -1) count as true in the row count, as
+    in the JAX reference's ``cmp_op`` (its Pallas ``_rowcount_kernel``
+    would select nothing; the engines never emit such codes).  With a K
+    axis, per-partition ops."""
+    K, C, M, B = 2, 4, 40, 70
+    L = _coarse(rng, (K, C, M))
+    R = _coarse(rng, (K, C, B))
+    op = np.array([[4, 1, -1, 2], [-1, 4, 3, -1]], np.int32)
+    th = _coarse(rng, (C,))  # negative thresholds included
+    got_ref = ref.window_join_rowcount_ref(*_t(L, R, op, th)).numpy()
+    got_ops = ops.window_join_rowcount(*_t(L, R, op, th)).numpy()
+    for k in range(K):
+        want = np.asarray(jax_rowcount_ref(L[k], R[k], op[k], th))
+        assert (got_ref[k] == want).all() and (got_ops[k] == want).all()
+    unknown = np.array([[4, -1, 4, -1]] * K, np.int32)
+    got = ops.window_join_rowcount(*_t(L, R, unknown, th)).numpy()
+    assert (got == np.asarray(jax_rowcount_ref(L[0], R[0], unknown[0],
+                                               th))).all()
+    assert (got == B).all()
+
+
 def test_rowcount_all_none_ops_counts_true_extent(rng):
     C, M, B = 2, 130, 140
     L, R, _, _, _, _ = _case(rng, C, M, B)
@@ -201,6 +223,19 @@ def test_dispatch_rules(rng):
         with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
             fn(L[None], R[None], op[None], th)
     assert ops.LAUNCHES == before
+
+
+def test_validity_vectors_reach_the_kernel_as_bytes():
+    """The packed kernel tests validity bytes for != 0; bool and int8
+    vectors (the plain version's and the JAX package's dtypes) are viewed
+    as those bytes, not copied or converted."""
+    v = torch.tensor([0, 1, -1, 127, -128], dtype=torch.int8)
+    for t in (v, v != 0):
+        u = window_join._as_u8(t)
+        assert u.dtype == torch.uint8 and u.data_ptr() == t.data_ptr()
+        assert torch.equal(u != 0, v != 0)
+    u8 = torch.tensor([0, 3], dtype=torch.uint8)
+    assert window_join._as_u8(u8) is u8
 
 
 def test_kernel_module_imports_without_nvcc():
@@ -439,3 +474,46 @@ def test_cuda_bits_and_select_match_plain(C, M, B, cuda_device, rng):
                 ops.select_survivors(*got, B, cap),
                 ops.select_survivors(*got, B, cap, backend="ref")), \
                 (name, cap)
+
+
+def _count_stacks(rng, K, C, M, B):
+    """Operand stacks for the row and pair counts: mixed op codes 0-4 with
+    thresholds of either sign; rows that are all true (codes 0 and 4) but
+    the last, so the last register group decides; the same behind a
+    leading validity row (as the engine's) that keeps only the first M/8
+    rows, so every 32 x 32 tile past them dies at the first row; and
+    all-op-0."""
+    L = _coarse(rng, (K, C, M))
+    R = _coarse(rng, (K, C, B))
+    op = rng.integers(0, 5, size=(K, C)).astype(np.int32)
+    th = _coarse(rng, (C,))
+    late = rng.choice(np.array([0, 4], np.int32), size=(K, C))
+    late[:, -1] = rng.integers(1, 4, size=K)
+    gL, gR, gop, gth = L.copy(), R.copy(), late.copy(), th.copy()
+    gL[:, 0] = np.arange(M) < M // 8
+    gR[:, 0], gop[:, 0], gth[0] = 1.0, 2, 0.5  # valid > 1.0 - 0.5
+    return [("mixed ops", (L, R, op, th)),
+            ("last row decides", (L, R, late, th)),
+            ("validity row first", (gL, gR, gop, gth)),
+            ("all-op-0", (L, R, np.zeros((K, C), np.int32), th))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 15, 16, 17, 33, 64])
+def test_cuda_counts_match_plain_across_edges(C, cuda_device, rng):
+    """The row count and the pair count against their plain versions at
+    shapes that cross the strip body's edges: C across the 16-row register
+    groups, M across 32-row strips, B across 32-column words; an op-0
+    stack counts B per row and M*B per partition."""
+    K = 2
+    for M in (1, 31, 33, 1000):
+        for B in (1, 31, 32, 33, 1030):
+            for what, arrays in _count_stacks(rng, K, C, M, B):
+                args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+                for fn in (ops.window_join_rowcount, ops.window_join_count):
+                    assert torch.equal(fn(*args), fn(*args, backend="ref")), \
+                        (fn.__name__, M, B, what)
+                if what == "all-op-0":
+                    assert (ops.window_join_rowcount(*args) == B).all()
+                    assert ops.window_join_count(*args).tolist() == \
+                        [M * B] * K
