@@ -32,12 +32,44 @@ Phases (each prints its seconds; any failure exits non-zero):
 7. tree     — phases 4-6 for ``plan="tree"`` (ZStream trees, the unpacked
               join): the full-width run with its own launch counts and its
               plain rerun, the narrow run against ``RefEngine``, and the
-              profile of its first chunks.
+              profile of its first chunks;
+8. superchunk — for each plan, the same K=16 session with
+              ``superchunk=8`` (``core/scan.py``: each chunk of a window is
+              one replay of a captured CUDA graph, no host sync inside the
+              window); its integer telemetry and per-partition matches
+              must equal the per-chunk kernel run of phase 4 / 7 (itself
+              held against the plain versions).  Prints events/s beside the
+              per-chunk run's, peak memory, graph captures and replays,
+              in-window events (windows cut at a flag or an overflow and
+              continued from the carry of that chunk), and per kernel the
+              launches the captures recorded times their replays;
+9. window profile — 16 chunks of the order window path under
+              ``torch.profiler``, after a first run that captured its
+              graphs: device-busy share of the wall;
+10. serving — a monitored K=16 order session driven chunk by chunk
+              through ``Session.step`` over the 64 chunks, and a second one
+              through ``Session.step_superchunk`` with S=8: per-chunk match
+              arrays, violations, replans and host syncs must be equal.
+
+Launch counts: the counters are zeroed just before each path runs and
+read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
+a graph replay calls no wrapper, so the window paths also count
+``GRAPH_LAUNCHES`` (the launches a capture recorded, once per replay), and
+each of their kernels must show graph launches.  A window path's
+``launches_by_path`` entry is the sum of the two.
 
 The survivor selection's record is a JSON line of its own; the line
 before the last is the JSON ``kernels`` record of the four kernels that
 replace TPU kernels; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 1 and prints no result.
+
+``python3 chip_smoke.py --bench N`` (a measurement, not the check) runs
+only the device and build phases, then for the order and tree sessions
+and the serving plane N per-chunk and N window runs of the K=16 stream
+in turns (per-chunk, window, window, per-chunk, ...), each held to equal
+telemetry, and prints each run's events/s over all 64 chunks (graph
+captures included) and over the chunks after the first 8, with the
+medians and ranges.
 """
 
 from __future__ import annotations
@@ -76,6 +108,10 @@ TREE_CAPS = dict(max_invariants=8, max_terms=16)
 # stays at one step so the tree path's work matches the earlier
 # measurements in PERF.md; the port's first benchmark is where to raise it.
 TREE_MAX_ESCALATIONS = 1
+# Chunks per window of the superchunk and serving phases.
+SUPERCHUNK = 8
+# --bench times each run's first chunks (graph captures) apart.
+BENCH_SPLIT = 8
 
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
@@ -496,18 +532,22 @@ def path_config(plan, **kw):
     return RuntimeConfig(**kw)
 
 
-def run_main(device, backend=None, plan="order"):
+def run_main(device, backend=None, plan="order", superchunk=1,
+             sessions=None):
     """The full-width path through ``cep.open(...).run``; returns the
-    telemetry, the wall seconds and the peak device memory (bytes)."""
+    telemetry, the wall seconds and the peak device memory (bytes), and
+    appends the session to ``sessions`` if given."""
     import torch
 
     from repro_torch import cep
 
     cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
                       chunk_capacity=CHUNK_CAP, device=device,
-                      backend=backend)
+                      backend=backend, superchunk=superchunk)
     sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
+    if sessions is not None:
+        sessions.append(sess)
     data = streams(K_MAIN, CHUNKS_MAIN, BASE_RATE, CHUNK_CAP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -517,10 +557,21 @@ def run_main(device, backend=None, plan="order"):
     return tel, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
+def same_telemetry(tel, want, what):
+    """Every integer telemetry field and the per-partition matches."""
+    for f in INT_FIELDS:
+        if getattr(tel, f) != getattr(want, f):
+            raise AssertionError(f"{what}: {f} {getattr(tel, f)} != "
+                                 f"{getattr(want, f)}")
+    if tel.per_partition_matches.tolist() != \
+            want.per_partition_matches.tolist():
+        raise AssertionError(f"{what}: per-partition matches differ")
+
+
 def check_path(plan):
     """Drives one path with the launch counters zeroed just before and
     read just after, then reruns it with the plain versions; returns the
-    launch counts."""
+    launch counts, the telemetry and the events/s."""
     from repro_torch.kernels import ops as kops
 
     kops.reset_launch_counts()
@@ -539,38 +590,223 @@ def check_path(plan):
     ref_tel, ref_secs, ref_peak = run_main("cuda", backend="ref", plan=plan)
     if any(kops.LAUNCHES.values()):
         raise AssertionError("backend='ref' launched a kernel")
-    for f in INT_FIELDS:
-        if getattr(tel, f) != getattr(ref_tel, f):
-            raise AssertionError(f"{f}: kernels {getattr(tel, f)} != "
-                                 f"plain {getattr(ref_tel, f)}")
-    if tel.per_partition_matches.tolist() != \
-            ref_tel.per_partition_matches.tolist():
-        raise AssertionError("per-partition matches differ from plain run")
+    same_telemetry(tel, ref_tel, f"{plan}: kernels vs plain")
     print(f"   plain-version rerun on the card: equal integer telemetry "
           f"({ref_secs:.3f} s = {ref_tel.events / ref_secs:.1f} events/s, "
           f"peak device memory {ref_peak / 2 ** 30:.3f} GiB)")
+    return launches, tel, tel.events / secs
+
+
+def window_launches(path, kernels):
+    """A window path's launches per kernel: wrapper launches plus the
+    launches replayed from captured graphs; fails if a kernel of the path
+    shows no graph launch."""
+    from repro_torch.kernels import ops as kops
+
+    for name in kernels:
+        if kops.GRAPH_LAUNCHES[name] <= 0:
+            raise AssertionError(f"{path}: no graph replay launched {name}")
+    print(f"   launches recorded at capture x replays: "
+          f"{dict(kops.GRAPH_LAUNCHES)}; wrapper launches (warm-up, eager "
+          f"escalation recounts): {dict(kops.LAUNCHES)}")
+    return {k: kops.LAUNCHES[k] + kops.GRAPH_LAUNCHES[k]
+            for k in kops.LAUNCHES}
+
+
+def check_superchunk(plan, want, want_rate):
+    """The K=16 session with superchunk=8 on the card against the
+    per-chunk kernel run ``want``; returns the launch counts."""
+    from repro_torch.core import scan
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    box = []
+    tel, secs, peak = run_main("cuda", plan=plan, superchunk=SUPERCHUNK,
+                               sessions=box)
+    launches = window_launches(f"superchunk {plan}", PATH_KERNELS[plan])
+    counts = dict(scan.COUNTS)
+    same_telemetry(tel, want, f"superchunk {plan} vs per-chunk")
+    if counts["replays"] <= 0 or counts["eager_steps"] != 0:
+        raise AssertionError(f"superchunk {plan}: window counts {counts}")
+    print(f"   plan={plan} superchunk={SUPERCHUNK}: equal integer telemetry "
+          f"to the per-chunk run; {tel.events / secs:.1f} events/s "
+          f"(per-chunk run: {want_rate:.1f}), peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; windows {counts['windows']}, graph "
+          f"captures {counts['captures']}, replays {counts['replays']}, "
+          f"in-window events {box[0]._runner.in_window_events}, "
+          f"escalations "
+          f"{tel.escalations}, replans {tel.replans}")
     return launches
 
 
-def profile_main(plan="order", n_chunks=16, top=12):
-    """Where a path's time goes: its first ``n_chunks`` chunks under
-    ``torch.profiler``; prints the device-busy share of the wall time and
-    the ops with the most device self time."""
+def serving_chunks():
+    """The 64 stacked chunks of the K=16 stream and their event count."""
+    import numpy as np
+
+    from repro_torch.core.fleet import stacked_streams
+
+    chunks = list(stacked_streams(streams(K_MAIN, CHUNKS_MAIN, BASE_RATE,
+                                          CHUNK_CAP)))
+    return chunks, int(sum(np.asarray(fc.chunk.valid).sum()
+                           for fc in chunks))
+
+
+def check_serving():
+    """A monitored K=16 order session driven by ``step`` and a second one
+    by ``step_superchunk`` (S=8) over the same 64 chunks; returns the
+    launch counts of the two runs."""
+    from repro_torch.core import scan
+    from repro_torch.kernels import ops as kops
+
+    chunks, n_events = serving_chunks()
+    out, tels, secs = {}, {}, {}
+    for superchunk in (1, SUPERCHUNK):
+        kops.reset_launch_counts()
+        scan.reset_counts()
+        seg_secs, out[superchunk], tels[superchunk], front = bench_run(
+            "serving", superchunk, chunks)
+        secs[superchunk] = sum(seg_secs)
+        if superchunk == 1:
+            step_launches = dict(kops.LAUNCHES)
+            for name in PATH_KERNELS["order"]:
+                if step_launches[name] <= 0:
+                    raise AssertionError(f"serving step never launched "
+                                         f"{name}")
+    launches = window_launches("serving", PATH_KERNELS["order"])
+    counts = dict(scan.COUNTS)
+    a, b = tels[1], tels[SUPERCHUNK]
+    if out[1].tolist() != out[SUPERCHUNK].tolist():
+        raise AssertionError("step_superchunk per-chunk matches != step's")
+    for f in ("matches", "violations", "replans", "host_syncs", "overflow"):
+        if getattr(a, f) != getattr(b, f):
+            raise AssertionError(f"serving {f}: step {getattr(a, f)} != "
+                                 f"step_superchunk {getattr(b, f)}")
+    if counts["replays"] <= 0 or counts["eager_steps"] != 0:
+        raise AssertionError(f"serving window counts {counts}")
+    print(f"   step: {n_events / secs[1]:.1f} events/s; step_superchunk "
+          f"(S={SUPERCHUNK}): {n_events / secs[SUPERCHUNK]:.1f} events/s; "
+          f"equal per-chunk matches (total {b.matches}), violations "
+          f"{b.violations}, replans {b.replans}, host syncs "
+          f"{b.host_syncs}; graph replays {counts['replays']}, in-window "
+          f"events {front.in_window_events}")
+    return step_launches, launches
+
+
+def bench_run(path, superchunk, chunks):
+    """One bench run of a fresh K=16 session over the stacked ``chunks``:
+    its first ``BENCH_SPLIT`` chunks (in which a window path captures its
+    graphs) and the rest, timed apart.  ``path`` is a plan ("order",
+    "tree": ``Session.run``) or "serving" (order plans through ``step``,
+    or ``step_superchunk`` with S > 1).  Returns the two segments'
+    seconds, the per-chunk matches (serving), the telemetry and the
+    runner or serving front."""
+    import numpy as np
+    import torch
+
+    from repro_torch import cep
+
+    plan = "order" if path == "serving" else path
+    cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
+                      chunk_capacity=CHUNK_CAP, device="cuda",
+                      superchunk=superchunk)
+    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
+                    monitor=True, config=cfg)
+    secs, got = [], []
+    for seg in (chunks[:BENCH_SPLIT], chunks[BENCH_SPLIT:]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if path != "serving":
+            sess.run(seg, resume=bool(secs))
+        elif superchunk == 1:
+            got.append(np.stack([sess.step(fc.chunk, fc.t0, fc.t1)
+                                 for fc in seg]))
+        else:
+            got.append(sess.step_superchunk(
+                [fc.chunk for fc in seg], [(fc.t0, fc.t1) for fc in seg]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    runner = sess._serving if path == "serving" else sess._runner
+    return (secs, np.concatenate(got) if got else None, sess.telemetry(),
+            runner)
+
+
+def bench(n_runs):
+    """Per path (order, tree, serving), ``n_runs`` per-chunk and ``n_runs``
+    window runs (S=8) in turns, each held to equal telemetry; prints
+    events/s per run over all 64 chunks (captures included) and over the
+    56 after the first ``BENCH_SPLIT`` (graphs captured), with medians and
+    ranges, peak memory, and the window runs' graph replays and in-window
+    events."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import scan
+
+    turns = ([1, SUPERCHUNK, SUPERCHUNK, 1] * n_runs)[:2 * n_runs]
+    chunks, n_events = serving_chunks()
+    n_late = int(sum(np.asarray(fc.chunk.valid).sum()
+                     for fc in chunks[BENCH_SPLIT:]))
+    for path in ("order", "tree", "serving"):
+        rates = {(s, w): [] for s in (1, SUPERCHUNK) for w in ("all", "late")}
+        peaks = {1: 0, SUPERCHUNK: 0}
+        want = None  # the first run's telemetry and per-chunk matches
+        for superchunk in turns:
+            scan.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            secs, got, tel, runner = bench_run(path, superchunk, chunks)
+            want = want or (tel, got)
+            same_telemetry(tel, want[0], f"bench {path} S={superchunk}")
+            if got is not None and got.tolist() != want[1].tolist():
+                raise AssertionError(f"bench {path} S={superchunk}: "
+                                     "per-chunk matches differ")
+            rates[superchunk, "all"].append(n_events / sum(secs))
+            rates[superchunk, "late"].append(n_late / secs[1])
+            peaks[superchunk] = max(peaks[superchunk],
+                                    torch.cuda.max_memory_allocated())
+            if superchunk > 1:
+                cut, counts = runner.in_window_events, dict(scan.COUNTS)
+        for (superchunk, which), r in rates.items():
+            span = ("all 64 chunks" if which == "all" else
+                    f"chunks {BENCH_SPLIT}-{CHUNKS_MAIN - 1}")
+            print(f"   bench {path} superchunk={superchunk}, {span}: "
+                  f"events/s {[round(x, 1) for x in r]}, median "
+                  f"{statistics.median(r):.1f} (range {min(r):.1f}-"
+                  f"{max(r):.1f})")
+        print(f"   bench {path}: peak device memory per-chunk "
+              f"{peaks[1] / 2 ** 30:.3f} GiB, window "
+              f"{peaks[SUPERCHUNK] / 2 ** 30:.3f} GiB; the last window "
+              f"run's windows {counts['windows']}, graph captures "
+              f"{counts['captures']}, replays {counts['replays']}, "
+              f"in-window events {cut}")
+
+
+def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
+    """Where a path's time goes: ``n_chunks`` chunks under
+    ``torch.profiler``, after ``warm`` chunks run unprofiled (in which a
+    window path, ``superchunk`` > 1, captures its graphs); prints the
+    device-busy share of the wall time, the ops with the most device self
+    time and the join-family kernels the profiler names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import cep
+    from repro_torch.core.fleet import stacked_streams
 
     cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
-                      chunk_capacity=CHUNK_CAP, device="cuda")
+                      chunk_capacity=CHUNK_CAP, device="cuda",
+                      superchunk=superchunk)
     sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
-    data = streams(K_MAIN, n_chunks, BASE_RATE, CHUNK_CAP)
+    chunks = list(stacked_streams(streams(K_MAIN, warm + n_chunks,
+                                          BASE_RATE, CHUNK_CAP)))
+    if warm:
+        sess.run(chunks[:warm])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         t = time.perf_counter()
-        sess.run(data)
+        sess.run(chunks[warm:], resume=bool(warm))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # Device-side rows only (kernels, copies): the op-level rows repeat
@@ -579,9 +815,14 @@ def profile_main(plan="order", n_chunks=16, top=12):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    print(f"   profiled {n_chunks} chunks of the {plan} path: wall "
+    what = f"{plan} window" if superchunk > 1 else plan
+    named = sorted(k for k in ("packed_kernel", "join_kernel",
+                               "rowcount_kernel", "select_kernel")
+                   if any(k in e.key for e in rows))
+    print(f"   profiled {n_chunks} chunks of the {what} path: wall "
           f"{wall:.3f} s, device busy "
-          f"{busy:.3f} s ({100 * busy / wall:.1f}% of wall)")
+          f"{busy:.3f} s ({100 * busy / wall:.1f}% of wall); join-family "
+          f"kernels named: {named or 'none'}")
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:top]:
         print(f"   device {e.self_device_time_total / 1e3:10.2f} ms  "
@@ -594,7 +835,7 @@ def profile_main(plan="order", n_chunks=16, top=12):
     # (the old running count took PyTorch's device-wide scan).
     scans = [e.key for e in rows if "DeviceScan" in e.key]
     if scans:
-        raise AssertionError(f"device-wide scans on the {plan} path: "
+        raise AssertionError(f"device-wide scans on the {what} path: "
                              f"{scans}")
 
 
@@ -653,6 +894,12 @@ def main() -> int:
             print(f"   ptxas: {line.strip()}")
     done("build", t)
 
+    if "--bench" in sys.argv:
+        t = phase("bench")
+        bench(int(sys.argv[sys.argv.index("--bench") + 1]))
+        done("bench", t)
+        return 0
+
     t = phase("kernels")
     pattern = flowsense_rule().build()
     c_packed = packed_row_count(make_spec(pattern))
@@ -663,10 +910,10 @@ def main() -> int:
     records = check_kernels("cuda", c_packed, c_rowcount, c_join)
     done("kernels", t)
 
-    launches = {}
+    launches, per_chunk = {}, {}
     for plan in ("order", "tree"):
         t = phase(f"main path, plan={plan}")
-        launches[plan] = check_path(plan)
+        launches[plan], *per_chunk[plan] = check_path(plan)
         done(f"main path, plan={plan}", t)
 
         t = phase(f"oracle, plan={plan}")
@@ -676,6 +923,21 @@ def main() -> int:
         t = phase(f"profile, plan={plan}")
         profile_main(plan)
         done(f"profile, plan={plan}", t)
+
+    for plan in ("order", "tree"):
+        t = phase(f"superchunk, plan={plan}")
+        launches[f"superchunk-{plan}"] = check_superchunk(
+            plan, *per_chunk[plan])
+        done(f"superchunk, plan={plan}", t)
+
+    t = phase("window profile, plan=order")
+    profile_main("order", superchunk=SUPERCHUNK, warm=8)
+    done("window profile, plan=order", t)
+
+    t = phase("serving")
+    launches["serving-step"], launches["serving-superchunk"] = \
+        check_serving()
+    done("serving", t)
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(

@@ -10,9 +10,9 @@ adapters (``engine()``, ``policy_factory()``) that translate back to the
 internal structures.
 
 The port's copy adds ``device`` (default ``"cuda"``; asking for CUDA
-without a GPU raises when a session opens).  ``superchunk > 1`` and
-``mesh`` raise ``NotImplementedError``: the superchunk scan and the device
-mesh come in later slices of the port.
+without a GPU raises when a session opens).  ``mesh`` raises
+``NotImplementedError``: the device mesh comes in a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -43,8 +43,11 @@ class RuntimeConfig:
 
     Scale-out
     ---------
-    superchunk: chunks per device dispatch; only 1 (per-chunk stepping)
-                in this slice of the port.
+    superchunk: chunks per window (``core.scan``: on CUDA one captured
+                graph replay per chunk, no host sync inside the window);
+                the host syncs/replans only at window boundaries (or at an
+                invariant flag), with results bit-identical to per-chunk
+                stepping.  The batch plane needs ``monitor=True`` for it.
     mesh:       sharding of the K-partition axis over devices; only None
                 in this slice of the port.
 
@@ -116,10 +119,6 @@ class RuntimeConfig:
             raise ValueError("match_capacity must be >= buffer_capacity")
         if self.superchunk < 1:
             raise ValueError("superchunk must be >= 1")
-        if self.superchunk > 1:
-            raise NotImplementedError(
-                "superchunk > 1: the superchunk scan comes in a later "
-                "slice of the port (Queue 1 item 5 of ROADMAP.md)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: the device mesh comes in a later slice of the port "
@@ -147,6 +146,16 @@ class RuntimeConfig:
             raise ValueError(
                 "monitored runtimes verify invariants on device; "
                 f"config.policy must be 'invariant' (got {self.policy!r})")
+
+    def require_device_control(self, monitor: bool) -> None:
+        """Superchunk windows keep control on the device between host
+        syncs; a host-side decision policy would need the per-chunk
+        statistics sync that the window exists to remove."""
+        if self.superchunk > 1 and not monitor:
+            raise ValueError(
+                "superchunk > 1 requires monitor=True: host decision "
+                "policies sync statistics every chunk, which defeats the "
+                "windowed plane (set monitor=True or superchunk=1)")
 
     # -- adapters to the internal structures --------------------------------
 

@@ -19,10 +19,19 @@ config.
   sampled per chunk), ``True`` fuses the statistics rings and lowered
   invariant sets into the device step (host work ∝ violations).
 
-The batch control plane ``run(stream)`` consumes a chunk stream through
-the adaptive loop (Algorithm 1 per partition) and returns a ``Telemetry``.
-The incremental plane of the JAX package (``step``, ``process``,
-``deploy``, ``step_superchunk``) comes in a later slice.
+Two control planes hang off one session, both driving the same data
+plane:
+
+* **Batch** — ``run(stream)`` consumes a chunk stream through the adaptive
+  loop (Algorithm 1 per partition) and returns a ``Telemetry``.
+* **Incremental** — ``process(...)`` / ``step(...)`` /
+  ``step_superchunk(...)`` / ``deploy(...)`` advance the session one keyed
+  batch or pre-stacked chunk at a time (serving style: immediate plan
+  swaps, cumulative counters).
+
+``superchunk=S`` runs S chunks per window on either plane (``core.scan``:
+on CUDA a captured graph replayed per chunk, no host sync inside the
+window), with results bit-identical to per-chunk stepping.
 
 OR-composites (``P.or_``) decompose into one sub-session per branch;
 counters aggregate as per-branch sums and ``telemetry().branches`` keeps
@@ -38,12 +47,15 @@ from typing import Iterable, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..core.adaptation import make_planner
+from ..core.engine import Chunk
 from ..core.fleet import (FleetChunk, FleetMetrics, FleetRunner,
                           MonitoredFleetRunner, stack_chunks, stacked_streams)
 from ..core.patterns import CompositePattern, Pattern
 from ..core.plans import plan_cost
 from ..core.stats import uniform_stat
 from ..data.cep_streams import ChunkRecord
+from ..serving.engine import (CEPFleetServingEngine,
+                              MonitoredCEPFleetServingEngine)
 from .config import RuntimeConfig
 from .dsl import as_pattern
 
@@ -58,12 +70,14 @@ _COUNTERS = (
 
 @dataclasses.dataclass
 class Telemetry:
-    """Uniform counter snapshot of a session.
+    """Uniform counter snapshot across both control planes.
 
     ``matches`` is the exactly-once full-match total (summed over branches
     for OR-composites); ``per_partition_matches`` keeps the (K,) split.
     ``violations``/``host_syncs`` are nonzero only for monitored sessions;
-    ``dropped`` counts keyed-batch routing overflow (always 0 for ``run``).
+    ``dropped`` counts keyed-batch routing overflow (back-pressure).
+    ``events`` is maintained by ``run`` and ``process`` — ``step`` skips
+    it to avoid a per-tick count of the valid mask.
     """
 
     partitions: int = 1
@@ -194,8 +208,10 @@ def _resolve_plan_kind(pattern: Pattern, plan: str) -> str:
 class Session:
     """One CEP runtime: pattern + partitions + plan family + monitoring.
 
-    Construct via :func:`repro_torch.cep.open`.  ``run`` spins up a fresh
-    adaptive loop per call (or continues the last one with
+    Construct via :func:`repro_torch.cep.open`.  The session is lazy: the
+    incremental serving plane (fleet state, plan matrix, monitor rings) is
+    built on first ``process``/``step``/``deploy``; ``run`` spins up a
+    fresh adaptive loop per call (or continues the last one with
     ``resume=True``) and folds its metrics into the session telemetry.
     """
 
@@ -215,11 +231,13 @@ class Session:
                         config=self.config) for b in self.pattern.branches)
             self.plan_kind: Union[str, Tuple[str, ...]] = tuple(
                 b.plan_kind for b in self.branches)
+            self._serving = None
             return
         self.branches = ()
         self.plan_kind = _resolve_plan_kind(self.pattern, plan)
         self.planner_name = ("greedy" if self.plan_kind == "order"
                              else "zstream")
+        self._serving: Optional[CEPFleetServingEngine] = None
         self._runner = None  # batch-plane runner, kept for run(resume=True)
 
     @property
@@ -241,7 +259,9 @@ class Session:
         if self.monitor:
             return MonitoredFleetRunner(
                 self.pattern, self.k, max_inv=cfg.max_invariants,
-                max_terms=cfg.max_terms, **common)
+                max_terms=cfg.max_terms, superchunk=cfg.superchunk,
+                **common)
+        cfg.require_device_control(self.monitor)
         return FleetRunner(self.pattern, self.k,
                            sel_samples=cfg.sel_samples, **common)
 
@@ -275,18 +295,146 @@ class Session:
         self._tel.merge(tel)
         return tel
 
+    # -- incremental (serving) control plane --------------------------------
+
+    def _ensure_serving(self) -> CEPFleetServingEngine:
+        if self._serving is None:
+            cfg = self.config
+            if self.monitor:
+                self._serving = MonitoredCEPFleetServingEngine(
+                    self.pattern, self.k, engine_cfg=cfg.engine(),
+                    kind=self.plan_kind, chunk_cap=cfg.chunk_capacity,
+                    planner=self.planner_name, policy_kw=cfg.policy_kw,
+                    monitor_buckets=cfg.estimator_buckets,
+                    max_inv=cfg.max_invariants, max_terms=cfg.max_terms,
+                    laplace=cfg.laplace, superchunk=cfg.superchunk)
+            else:
+                plan0, _ = make_planner(self.planner_name)(
+                    self.pattern, uniform_stat(self.pattern.n))
+                self._serving = CEPFleetServingEngine(
+                    self.pattern, self.k, plan0, cfg.engine(),
+                    self.plan_kind, cfg.chunk_capacity,
+                    laplace=cfg.laplace, superchunk=cfg.superchunk)
+        return self._serving
+
+    def step(self, chunk: Chunk, t0: float, t1: float) -> np.ndarray:
+        """Advance the fleet one tick over an already-stacked chunk.
+
+        ``chunk`` fields carry a leading K axis (a bare single-partition
+        ``Chunk`` is accepted when K = 1).  Returns this tick's
+        per-partition full-match counts.  Monitored sessions also run the
+        violation → sync → replan → row-deploy loop inside the call.
+        ``telemetry().events`` is not updated here; use ``process``/``run``
+        when event totals matter.
+        """
+        if self.is_composite:
+            self._tel.chunks += 1
+            return sum(b.step(chunk, t0, t1) for b in self.branches)
+        eng = self._ensure_serving()
+        if np.ndim(chunk.type_id) == 1:
+            if self.k != 1:
+                raise ValueError("unstacked chunk on a multi-partition "
+                                 "session; stack K per-partition chunks")
+            chunk = stack_chunks([chunk])
+        self._tel.chunks += 1
+        return eng.process_chunk(chunk, float(t0), float(t1))
+
+    def step_superchunk(self, chunks: Sequence[Chunk],
+                        edges: Sequence[Tuple[float, float]]) -> np.ndarray:
+        """Advance the fleet over a sequence of stacked chunks with
+        ``config.superchunk`` chunks per window.
+
+        Equal to looping :meth:`step` (a monitored session cuts a window
+        at a mid-window flag, so replans still deploy on the very next
+        chunk); the host reads back once per window instead
+        of once per chunk.  Returns the per-chunk ``(len(chunks), K)``
+        full-match counts.  Like ``step``, event totals are not kept.
+        """
+        if self.is_composite:
+            self._tel.chunks += len(chunks)
+            return sum(b.step_superchunk(chunks, edges)
+                       for b in self.branches)
+        eng = self._ensure_serving()
+        self._tel.chunks += len(chunks)
+        return eng.process_superchunk(chunks, edges)
+
+    def process(self, type_id, ts, attr, keys, t0: float,
+                t1: float) -> np.ndarray:
+        """Route one keyed event batch (``key % K``) covering ``(t0, t1]``
+        and tick the fleet once; returns per-partition match counts."""
+        if self.is_composite:
+            self._tel.chunks += 1
+            self._tel.events += int(len(np.asarray(type_id)))
+            return sum(b.process(type_id, ts, attr, keys, t0, t1)
+                       for b in self.branches)
+        eng = self._ensure_serving()
+        self._tel.chunks += 1
+        self._tel.events += int(len(np.asarray(type_id)))
+        return eng.process_batch(type_id, ts, attr, keys,
+                                 float(t0), float(t1))
+
+    def deploy(self, partition: int, plan) -> None:
+        """Deploy an evaluation plan for one partition: a stacked-matrix
+        row write, never a new shape (§2.2 cheap deployment).
+
+        On a monitored session the partition's invariant row keeps
+        guarding the last *planner* output; a later violation re-runs the
+        planner and overrides the manual plan."""
+        if self.is_composite:
+            raise ValueError("deploy on a composite session is ambiguous; "
+                             "use session.branches[i].deploy(...)")
+        self._ensure_serving().deploy_plan(partition, plan)
+        self._tel.deployments += 1
+
+    def reset(self) -> None:
+        """Clear stream state (ring buffers, monitor rings, counters) while
+        keeping deployed plans."""
+        if self.is_composite:
+            for b in self.branches:
+                b.reset()
+        else:
+            if self._serving is not None:
+                self._serving.reset()
+            self._runner = None  # next run(resume=True) starts fresh
+        self._tel = Telemetry(partitions=self.k)
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _serving_telemetry(self) -> Telemetry:
+        eng = self._serving
+        tel = Telemetry(partitions=self.k)
+        if eng is None:
+            return tel
+        tel.matches = int(eng.matches.sum())
+        tel.per_partition_matches = eng.matches.copy()
+        tel.overflow = int(eng.overflow.sum())
+        tel.neg_rejected = int(eng.neg_rejected.sum())
+        tel.closure_expansions = int(eng.closure_expansions.sum())
+        tel.dropped = int(eng.dropped)
+        if self.monitor:
+            tel.violations = int(eng.violations.sum())
+            tel.replans = int(eng.replans.sum())
+            tel.host_syncs = int(eng.host_syncs)
+            tel.last_drift = eng.last_drift.copy()
+        return tel
+
     def telemetry(self) -> Telemetry:
-        """Cumulative session telemetry over every ``run``."""
+        """Cumulative session telemetry across both control planes."""
         if self.is_composite:
             parts = tuple(b.telemetry() for b in self.branches)
             tel = Telemetry(partitions=self.k)
             for p in parts:
                 tel.merge(p)
+            # Shared input is counted once by the composite itself (run,
+            # step, and process all maintain self._tel), not per branch.
             tel.chunks = self._tel.chunks
             tel.events = self._tel.events
             tel.branches = parts
             return tel
-        return Telemetry(partitions=self.k).merge(self._tel)
+        tel = Telemetry(partitions=self.k)
+        tel.merge(self._tel)
+        tel.merge(self._serving_telemetry())
+        return tel
 
 
 def open(pattern, *, partitions: int = 1, plan: str = "auto",
@@ -311,9 +459,13 @@ def open(pattern, *, partitions: int = 1, plan: str = "auto",
                 decision policy on the host each chunk.
     config:     a :class:`RuntimeConfig`; ``config.device`` (default
                 "cuda") places the data plane.
-    superchunk, mesh: convenience overrides of the config fields; values
-                other than 1 / None raise ``NotImplementedError`` in this
-                slice.
+    superchunk: convenience override of ``config.superchunk`` — chunks
+                per window; the host syncs/replans only at window
+                boundaries (or at an invariant flag), with detection,
+                flags and replan points bit-identical to per-chunk
+                stepping.
+    mesh:       convenience override of ``config.mesh``; anything but
+                None raises ``NotImplementedError`` in this slice.
     """
     config = config or RuntimeConfig()
     overrides = {}

@@ -20,10 +20,15 @@ Two control planes drive it:
   (plus drift) per chunk and syncs the statistics of flagged partitions
   alone.
 
+``MonitoredFleetRunner(superchunk=S)`` runs S chunks per window
+(``core.scan``): one captured CUDA graph replay per chunk on the card, no
+host sync inside the window; a window in which a flag or an overflow
+fires is accepted up to that chunk, as in the reference.
+
 Differential guarantee: every counter equals the JAX package's fleet and
-the brute-force oracle (``ref_engine``); see ``tests/test_torch_fleet.py``
-and ``tests/test_torch_session.py``.  The superchunk scan and the device
-mesh come in later slices.
+the brute-force oracle (``ref_engine``); see ``tests/test_torch_fleet.py``,
+``tests/test_torch_session.py`` and ``tests/test_torch_superchunk.py``.
+The device mesh comes in a later slice.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ _POS_INF = POS_INF
 
 
 # ---------------------------------------------------------------------------
-# Chunk stacking
+# Chunk routing / stacking
 # ---------------------------------------------------------------------------
 
 
@@ -62,6 +67,43 @@ class FleetChunk(NamedTuple):
     t0: float
     t1: float
     dropped: int = 0      # events dropped by per-partition capacity
+
+
+def route_events(
+    type_id: np.ndarray,
+    ts: np.ndarray,
+    attr: np.ndarray,
+    keys: np.ndarray,
+    k: int,
+    cap: int,
+) -> Tuple[Chunk, int]:
+    """Scatter one keyed event stream into K per-partition padded host
+    chunks.
+
+    ``keys`` are arbitrary integer routing keys (tenant/symbol ids); events
+    land in partition ``key % k``.  Per-partition overflow beyond ``cap``
+    is dropped and counted (the serving layer surfaces it as back-pressure).
+    Events within a partition keep their stream order.
+    """
+    n_attrs = attr.shape[1]
+    out_tid = np.full((k, cap), -1, np.int32)
+    out_ts = np.zeros((k, cap), np.float32)
+    out_attr = np.zeros((k, cap, n_attrs), np.float32)
+    out_valid = np.zeros((k, cap), bool)
+    part = np.asarray(keys) % k
+    dropped = 0
+    for p in range(k):
+        idx = np.nonzero(part == p)[0]
+        m = len(idx)
+        if m > cap:
+            dropped += m - cap
+            idx = idx[:cap]
+            m = cap
+        out_tid[p, :m] = type_id[idx]
+        out_ts[p, :m] = ts[idx]
+        out_attr[p, :m] = attr[idx]
+        out_valid[p, :m] = True
+    return Chunk(out_tid, out_ts, out_attr, out_valid), dropped
 
 
 def stack_chunks(chunks: Sequence[Chunk]) -> Chunk:
@@ -116,6 +158,7 @@ class FleetEngine:
         self.monitor_laplace = monitor_laplace
         self._mprocess = None
         self._operands: "OrderedDict[bytes, object]" = OrderedDict()
+        self._scans = {}  # superchunk windows keyed by `monitored`
 
     # -- state -------------------------------------------------------------
 
@@ -201,6 +244,17 @@ class FleetEngine:
         return self._mprocess(
             state, monitor, self._chunk(chunks), self.plan_operands(plans),
             lowered, *self._clock(t0, t1, born_lo, born_hi))
+
+    def superchunk_scan(self, monitored: bool):
+        """The S-chunks-per-window function (``core.scan``), one per
+        (engine, monitored).  Plans and invariants enter as data, so
+        replans never capture a new graph; an escalated fleet is another
+        engine and captures its own."""
+        from .scan import SuperchunkWindow
+
+        if monitored not in self._scans:
+            self._scans[monitored] = SuperchunkWindow(self, monitored)
+        return self._scans[monitored]
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +657,10 @@ class MonitoredFleetRunner(FleetRunner):
     Violation-flag contract: flags computed over chunk ``c`` trigger a
     replan that deploys at chunk ``c+1``'s ``t0`` (a deferred replan), with
     the [36] migration split at that ``t0``.
+
+    ``superchunk > 1`` runs that many chunks per window (``core.scan``)
+    with the same results; ``in_window_events`` counts the windows cut
+    short at an in-window flag or overflow.
     """
 
     def __init__(self, pattern: Pattern, k: int, planner=None,
@@ -613,7 +671,8 @@ class MonitoredFleetRunner(FleetRunner):
                  max_terms: Optional[int] = None,
                  laplace: float = 1.0,
                  escalate_on_overflow: bool = True,
-                 max_escalations: int = 4, seed: int = 0):
+                 max_escalations: int = 4, seed: int = 0,
+                 superchunk: int = 1):
         policy_factory = policy_factory or (
             lambda: InvariantPolicy(k=1, d=0.0))
         super().__init__(pattern, k, planner=planner,
@@ -628,6 +687,10 @@ class MonitoredFleetRunner(FleetRunner):
                 raise TypeError(
                     "device monitoring verifies lowered invariant sets; "
                     "policy_factory must produce InvariantPolicy")
+        if superchunk < 1:
+            raise ValueError("superchunk must be >= 1")
+        self.superchunk = int(superchunk)
+        self.in_window_events = 0
         self.monitor_buckets = estimator_buckets
         self._caps = (max_inv, max_terms)
         self._low: Optional[StackedLowered] = None
@@ -675,8 +738,15 @@ class MonitoredFleetRunner(FleetRunner):
                 self.fleet.init_monitor(self.monitor_buckets),
                 np.zeros(self.k, bool), None, None)
 
+    def _save_carry(self, state, monitor, pending, rates, sel) -> None:
+        self._state, self._monitor = state, monitor
+        self._pending = pending
+        self._pend_rates, self._pend_sel = rates, sel
+
     def run(self, fleet_stream: Iterable[FleetChunk],
             resume: bool = False) -> FleetMetrics:
+        if self.superchunk > 1:
+            return self._run_scanned(fleet_stream, resume)
         m = FleetMetrics(
             per_partition_matches=np.zeros(self.k, np.int64),
             per_partition_deployments=np.zeros(self.k, np.int64))
@@ -716,7 +786,111 @@ class MonitoredFleetRunner(FleetRunner):
             m.last_drift = drift.cpu().numpy().astype(np.float32)
             m.engine_time_s += time.perf_counter() - t_eng
             self._tally(m, fc, counters)
-        self._state, self._monitor = state, monitor
-        self._pending = pending
-        self._pend_rates, self._pend_sel = rates_dev, sel_dev
+        self._save_carry(state, monitor, pending, rates_dev, sel_dev)
+        return m
+
+    # -- superchunk (windowed) loop ------------------------------------------
+
+    def _run_scanned(self, fleet_stream: Iterable[FleetChunk],
+                     resume: bool = False) -> FleetMetrics:
+        """The per-chunk loop above with the host taken out of it.
+
+        Up to ``superchunk`` chunks run per window; flags, drift and
+        counters accumulate on the device (``core.scan``).  The host
+        surfaces only at window boundaries — or, by cutting the window at
+        its first event, right after an in-window invariant flag or
+        overflow, so deferred-replan and escalation semantics are
+        bit-identical to per-chunk stepping.
+        """
+        from .scan import first_event, stack_window, window_control
+
+        s_cap = self.superchunk
+        m = FleetMetrics(
+            per_partition_matches=np.zeros(self.k, np.int64),
+            per_partition_deployments=np.zeros(self.k, np.int64))
+        state, monitor, pending, pend_rates, pend_sel = self._carry(resume)
+        if self._low is None:
+            self._prime()
+        it = iter(fleet_stream)
+        buf: List[FleetChunk] = []
+        exhausted = False
+
+        while True:
+            while len(buf) < s_cap and not exhausted:
+                try:
+                    buf.append(next(it))
+                except StopIteration:
+                    exhausted = True
+            if not buf:
+                break
+            t_ctl = time.perf_counter()
+            self._apply_pending(pending, pend_rates, pend_sel, buf[0].t0, m)
+            pending[:] = False
+            n_en = len(buf)
+            ctl = window_control(self._replan_t, self._migration_until,
+                                 [fc.t0 for fc in buf], s_cap)
+            xs = stack_window([fc.chunk for fc in buf],
+                              [fc.t0 for fc in buf],
+                              [fc.t1 for fc in buf], ctl, s_cap)
+            m.control_time_s += time.perf_counter() - t_ctl
+
+            t_eng = time.perf_counter()
+            window = self._active_fleet.superchunk_scan(monitored=True)
+            low_dev = self._low.device()
+            state2, monitor2, ys = window(state, monitor, self._cur_rows,
+                                          self._old_rows, low_dev, xs)
+            # One readback of counters, flags and drift; the (S, K, n[, n])
+            # statistics stay on the device and are pulled per flagged
+            # partition, as per chunk.
+            full_h, pm_h, ov_h, cl_h, ng_h, violated_h, drift_h = \
+                ys.host(n_en)
+            f = first_event(violated_h, ov_h, n_en,
+                            self.escalate_on_overflow)
+            if f is not None and f < n_en - 1:
+                # In-window event: accept chunks [0..f] and continue from
+                # the carry after chunk f, so the host can replan /
+                # escalate before chunk f+1 runs, exactly as per chunk.
+                state2, monitor2 = ys.carry_after(f)
+                self.in_window_events += 1
+            accept = n_en if f is None else f + 1
+            last = accept - 1
+            state, monitor = state2, monitor2
+
+            # Commit the host mirrors to the fold state at the last accepted
+            # chunk (float64, the per-chunk loop's trajectory, including
+            # retiring the lapsed partitions' old plans).
+            self._replan_t = ctl.replan_seq[last].copy()
+            lapsed = ctl.old_sel[last]
+            self._old_rows[lapsed] = self._cur_rows[lapsed]
+            for p in np.nonzero(lapsed)[0]:
+                self.old_plans[p] = None
+
+            counters = [np.asarray(c, np.int64)
+                        for c in (full_h, pm_h, ov_h, cl_h, ng_h)]
+            row_l = [c[last].copy() for c in counters]
+            pre_fleet = self._active_fleet
+            if self.escalate_on_overflow and row_l[2].sum() > 0:
+                # Overflow recovery for the event chunk, as per chunk: a
+                # recount at the next pow2 match capacity from the
+                # post-chunk state; the escalated fleet persists for the
+                # following windows.
+                state, row_l = self._escalate(
+                    state, buf[last], ctl.migrating[last], row_l, m)
+            if ctl.migrating[last].any():
+                # Mid-migration overflow: transient recount, not a regime.
+                self._active_fleet = pre_fleet
+
+            for s in range(accept):
+                row = row_l if s == last else [c[s] for c in counters]
+                self._tally(m, buf[s], row)
+            m.migration_partition_chunks += int(ctl.migrating[:accept].sum())
+            m.last_drift = np.asarray(drift_h[last], np.float32)
+            pending = np.asarray(violated_h[last]).copy()
+            # Device slices of the window's outputs (not a graph's output
+            # buffers, which the next replay overwrites).
+            pend_rates = ys.rates[last]
+            pend_sel = ys.sel[last]
+            m.engine_time_s += time.perf_counter() - t_eng
+            buf = buf[accept:]
+        self._save_carry(state, monitor, pending, pend_rates, pend_sel)
         return m

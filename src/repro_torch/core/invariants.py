@@ -414,6 +414,16 @@ def _prod_last(x):
     return out
 
 
+def _sum_last(x):
+    """Left-to-right sum over the last axis: a fixed order, so the
+    rounding (and a flag on the ``(1+d)`` boundary) does not depend on
+    the device's reduction tree."""
+    out = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = out + x[..., i]
+    return out
+
+
 def eval_lowered(low: LoweredInvariants, rates, sel):
     """Device-side ``D`` for K partitions: (violated (K,) bool, drift (K,)
     f32).
@@ -435,7 +445,7 @@ def eval_lowered(low: LoweredInvariants, rates, sel):
     sl = _prod_last(_ipow(sel[:, None, None, None, :, :],
                           low.sel_exp).flatten(-2))
     term = low.const + low.scale * rt * sl          # (K, I, 2, T)
-    sides = term.sum(dim=-1)                        # (K, I, 2)
+    sides = _sum_last(term)                         # (K, I, 2)
     lhs, rhs = sides[..., 0], sides[..., 1]
     gap = lhs - (1.0 + low.d)[:, None] * rhs
     bad = low.active & (gap > 0.0)

@@ -28,6 +28,7 @@ from . import ref as _ref
 from . import window_join as _wj
 
 LAUNCHES = _wj.LAUNCHES
+GRAPH_LAUNCHES = _wj.GRAPH_LAUNCHES
 reset_launch_counts = _wj.reset_launch_counts
 
 

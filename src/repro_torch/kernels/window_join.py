@@ -45,7 +45,10 @@ imports on a machine without ``nvcc`` or a GPU, and only a launch builds.
 Launch.  Each wrapper checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the C launcher returns a CUDA error.  It adds one to its entry
-of ``LAUNCHES`` where it launches, and nowhere else.
+of ``LAUNCHES`` where it launches, and nowhere else.  The kernels are
+capture-safe: they allocate nothing and never synchronise, so a step that
+calls them can be captured as a CUDA graph; a replay adds the launches
+its capture recorded to ``GRAPH_LAUNCHES`` instead.
 
 Small shapes.  The JAX package's ``_tile_waste`` sends mostly-padding
 shapes to its jnp reference instead of the TPU kernel.  The port does not
@@ -55,6 +58,7 @@ threshold would be re-derived from H100 launch times, once they exist.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -83,13 +87,39 @@ LAUNCHES: Dict[str, int] = {"window_join_packed": 0,
                             "window_join_count": 0,
                             "select_survivors": 0}
 
+# Launches replayed from captured CUDA graphs (``core/scan.py``): a replay
+# calls no wrapper, so each replay adds the launches its capture recorded.
+GRAPH_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, GRAPH_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA-graph capture: yields a dict that receives the
+    launches the capture recorded, and leaves ``LAUNCHES`` as it was (a
+    capture runs no kernel)."""
+    before = dict(LAUNCHES)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for key in LAUNCHES:
+            recorded[key] = LAUNCHES[key] - before[key]
+            LAUNCHES[key] = before[key]
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``recorded``."""
+    for key, n in recorded.items():
+        GRAPH_LAUNCHES[key] += n
 
 
 def _nvcc() -> str:

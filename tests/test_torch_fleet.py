@@ -5,15 +5,18 @@ rows go through JAX ``FleetEngine.process_chunk_monitored`` and the
 port's, for order plans and for tree plans (a different tree per
 partition, lowered ZStream invariants).  Counters, violation flags,
 ``rates`` and ``sel`` must be equal, and so must the ring buffers and the
-statistics rings; ``drift`` (a ratio of float sums and products) is held
-to ``rtol=1e-6``.  The plain (unmonitored) tree step is held the same way.
-Two tests run JAX for a few chunks, carry its state into the port with
-``repro_torch.core.convert`` and continue both.
+statistics rings, and ``drift`` too: each invariant side is summed left
+to right, as ``jnp.sum`` does on the CPU.  The plain (unmonitored) tree
+step is held the same way.  Two tests run JAX for a few chunks, carry
+its state into the port with ``repro_torch.core.convert`` and continue
+both.  Each invariant side's sum is checked on its own against JAX's, on
+rows with every term live.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core.fleet as jfleet
 from repro.cep import P as JP
@@ -109,8 +112,7 @@ def _compare(jout, tout):
     assert np.array_equal(tviol.numpy(), np.asarray(jviol))
     assert np.array_equal(trates.numpy(), np.asarray(jrates))
     assert np.array_equal(tsel.numpy(), np.asarray(jsel))
-    np.testing.assert_allclose(tdrift.numpy(), np.asarray(jdrift),
-                               rtol=1e-6)
+    assert np.array_equal(tdrift.numpy(), np.asarray(jdrift))
     for want, got in zip(jbuf, tbuf):
         assert np.array_equal(got.numpy(), np.asarray(want))
     for want, got in zip(jmon, tmon):
@@ -307,3 +309,64 @@ def test_stacked_lowered_patches_one_row_in_place():
     assert float(dev.d[1]) == pytest.approx(0.5)
     assert float(dev.d[0]) == 0.0 and float(dev.d[2]) == 0.0
     assert np.array_equal(dev.scale.numpy(), scale_before.numpy())
+
+
+def _random_lowered(rng, k, i_cap=8, t_cap=16, n=3):
+    """Lowered invariant rows with every term live: enough float terms per
+    side that the order of the side sums shows in the last bits."""
+    from repro_torch.core.invariants import LoweredInvariants
+
+    return LoweredInvariants(
+        scale=rng.uniform(0.1, 50.0, (k, i_cap, 2, t_cap)).astype(np.float32),
+        const=rng.uniform(-5.0, 5.0, (k, i_cap, 2, t_cap)).astype(
+            np.float32),
+        rate_exp=(rng.random((k, i_cap, 2, t_cap, n)) < 0.5).astype(
+            np.float32),
+        sel_exp=(rng.random((k, i_cap, 2, t_cap, n, n)) < 0.2).astype(
+            np.float32),
+        active=rng.random((k, i_cap)) < 0.8,
+        d=rng.uniform(0.0, 0.2, k).astype(np.float32))
+
+
+def test_eval_lowered_matches_jax_bit_for_bit():
+    """Each invariant side is summed left to right, as the JAX package's
+    ``jnp.sum`` does on the CPU, so flags and drift are the reference's
+    bit for bit (a device-order sum differed in the last bits)."""
+    import jax
+
+    from repro.core.invariants import LoweredInvariants as JLowered
+    from repro.core.invariants import eval_lowered as j_eval
+    from repro_torch.core.invariants import eval_lowered
+
+    rng = np.random.default_rng(7)
+    k, n = 64, 3
+    low = _random_lowered(rng, k, n=n)
+    rates = rng.uniform(0.5, 20.0, (k, n)).astype(np.float32)
+    sel = rng.uniform(0.01, 1.0, (k, n, n)).astype(np.float32)
+    jv, jd = jax.vmap(j_eval)(JLowered(*map(jnp.asarray, low)),
+                              jnp.asarray(rates), jnp.asarray(sel))
+    tv, td = eval_lowered(type(low)(*map(torch.as_tensor, low)),
+                          torch.as_tensor(rates), torch.as_tensor(sel))
+    assert np.array_equal(tv.numpy(), np.asarray(jv))
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.gpu
+def test_cuda_eval_lowered_matches_cpu():
+    """On the card the flags and drift equal the CPU's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the GPU)")
+    from repro_torch.core.invariants import eval_lowered
+
+    rng = np.random.default_rng(7)
+    k, n = 64, 3
+    low = _random_lowered(rng, k, n=n)
+    rates = rng.uniform(0.5, 20.0, (k, n)).astype(np.float32)
+    sel = rng.uniform(0.01, 1.0, (k, n, n)).astype(np.float32)
+    outs = [eval_lowered(type(low)(*(torch.as_tensor(x, device=dev)
+                                     for x in low)),
+                         torch.as_tensor(rates, device=dev),
+                         torch.as_tensor(sel, device=dev))
+            for dev in ("cpu", "cuda")]
+    for a, b in zip(*outs):
+        assert np.array_equal(a.numpy(), b.cpu().numpy())

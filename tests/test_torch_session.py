@@ -2,8 +2,8 @@
 
 On the per-chunk rows of the ``tests/test_session.py`` grid (order and
 tree plans, monitor on and off, K in {1, 4}), every integer field of the
-port's ``Telemetry`` must equal the reference's, ``last_drift`` is held to
-``rtol=1e-6``, and the runners' ``FleetMetrics.pm_created`` (join work)
+port's ``Telemetry`` must equal the reference's, and so must
+``last_drift`` and the runners' ``FleetMetrics.pm_created`` (join work)
 must be equal too.  Further runs cover a flag-triggered replan, overflow
 escalation (with de-escalation on deploy), a ``plan="auto"`` that
 resolves to tree, and streams split across ``run(..., resume=True)``.  A
@@ -70,8 +70,7 @@ def assert_same_telemetry(got, want):
     if want.last_drift is None:
         assert got.last_drift is None
     else:
-        np.testing.assert_allclose(got.last_drift, want.last_drift,
-                                   rtol=1e-6)
+        assert np.array_equal(got.last_drift, want.last_drift)
 
 
 def run_both(monitor, k, config=CONFIG, seed=11, scfg=SCFG, plan="order"):
@@ -224,8 +223,11 @@ def test_plan_resolution_and_deferred_features():
     assert (tsess.plan_kind, tsess.planner_name) == \
         (jsess.plan_kind, jsess.planner_name) == ("tree", "zstream")
     assert_same_telemetry(tsess.run(streams(1)), jsess.run(jstreams(1)))
-    with pytest.raises(NotImplementedError, match="superchunk"):
-        cep.open(rule(P), plan="order", config=cfg, superchunk=4)
+    with pytest.raises(ValueError, match="monitor=True"):
+        cep.open(rule(P), plan="order", config=cfg, superchunk=4).run(
+            streams(1))
+    with pytest.raises(ValueError, match="superchunk"):
+        RuntimeConfig(device="cpu", superchunk=0)
     with pytest.raises(NotImplementedError, match="mesh"):
         cep.open(rule(P), plan="order", config=cfg, mesh="auto")
     assert RuntimeConfig().device == "cuda"
@@ -304,11 +306,13 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.engine", "repro_torch.core.fleet",
         "repro_torch.core.greedy", "repro_torch.core.invariants",
         "repro_torch.core.patterns", "repro_torch.core.plans",
-        "repro_torch.core.ref_engine", "repro_torch.core.stats",
-        "repro_torch.core.zstream", "repro_torch.data",
-        "repro_torch.data.cep_streams", "repro_torch.kernels",
-        "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-        "repro_torch.kernels.window_join",
+        "repro_torch.core.ref_engine", "repro_torch.core.scan",
+        "repro_torch.core.stats", "repro_torch.core.zstream",
+        "repro_torch.data", "repro_torch.data.cep_streams",
+        "repro_torch.kernels", "repro_torch.kernels.ops",
+        "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
+        "repro_torch.serving", "repro_torch.serving.engine",
+        "repro_torch.serving.scheduler",
     ]
     code = (
         "import importlib, sys\n"
