@@ -18,7 +18,12 @@ Phases (each prints its seconds; any failure exits non-zero):
               counts, and the survivor selection (with overflow, zero
               survivors and a capacity past M*B); median times (CUDA
               events) beside each kernel's bound, and the counts' and the
-              tree join's times on validity-led stacks;
+              tree join's times on validity-led stacks.  The packed join
+              and the row count also with a threshold row per batch
+              element (rows that differ) at the rulebook's shapes (the
+              unpacked join and the pair count at a ragged one), and a
+              shared (C,) vector (batch stride 0) against the same values
+              as (K, C);
 4. main     — ``repro_torch.cep.open(..., plan="order").run(...)`` on the
               K=16 FlowSense alert rule at full width, with the launch
               counters zeroed just before and read just after; then the
@@ -38,25 +43,46 @@ Phases (each prints its seconds; any failure exits non-zero):
               one replay of a captured CUDA graph, no host sync inside the
               window); its integer telemetry and per-partition matches
               must equal the per-chunk kernel run of phase 4 / 7 (itself
-              held against the plain versions).  Prints events/s beside the
-              per-chunk run's, peak memory, graph captures and replays,
-              in-window events (windows cut at a flag or an overflow and
-              continued from the carry of that chunk), and per kernel the
-              launches the captures recorded times their replays;
+              held against the plain versions), and so must the same
+              window run with ``backend="ref"`` (the plain versions,
+              captured and replayed on the card).  Prints events/s beside
+              the per-chunk run's, peak memory, graph captures and
+              replays, in-window events (windows cut at a flag or an
+              overflow and continued from the carry of that chunk), and per
+              kernel the launches the captures recorded times their
+              replays;
 9. window profile — 16 chunks of the order window path under
               ``torch.profiler``, after a first run that captured its
               graphs: device-busy share of the wall;
 10. serving — a monitored K=16 order session driven chunk by chunk
               through ``Session.step`` over the 64 chunks, and a second one
-              through ``Session.step_superchunk`` with S=8: per-chunk match
-              arrays, violations, replans and host syncs must be equal.
+              through ``Session.step_superchunk`` with S=8, and a third
+              with S=8 and ``backend="ref"``: per-chunk match arrays,
+              violations, replans and host syncs must be equal;
+11. rulebook — ``repro_torch.cep.open_rulebook`` with the FlowSense
+              tenant's three rules (alert chain, acknowledgement, combo:
+              two buckets, n=3 with negation and n=2 fusing two rules of
+              different windows and predicates, so the per-batch
+              thresholds are live), K=16, the 64 chunks of phase 4, one
+              spare slot per bucket: ``run`` per chunk with the launch
+              counters zeroed just before and read just after; zero
+              overflow; per-rule counters equal three solo sessions
+              (``Session.step``), the ``backend="ref"`` rerun, and the
+              ``superchunk=8`` window run; a narrow K=4 run equals
+              ``RefEngine``; a fourth rule hot-added into a spare slot
+              after 32 chunks of a window run builds no kernel and
+              captures no graph, and equals its solo session.  Prints
+              events/s and peak memory of the per-chunk and window runs;
+              then 16 chunks of the per-chunk rulebook under
+              ``torch.profiler`` (as phase 6).
 
 Launch counts: the counters are zeroed just before each path runs and
 read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
 a graph replay calls no wrapper, so the window paths also count
 ``GRAPH_LAUNCHES`` (the launches a capture recorded, once per replay), and
 each of their kernels must show graph launches.  A window path's
-``launches_by_path`` entry is the sum of the two.
+``launches_by_path`` entry is the sum of the two; the rulebook's are
+"rulebook" and "rulebook window".
 
 The survivor selection's record is a JSON line of its own; the line
 before the last is the JSON ``kernels`` record of the four kernels that
@@ -113,6 +139,11 @@ SUPERCHUNK = 8
 # --bench times each run's first chunks (graph captures) apart.
 BENCH_SPLIT = 8
 
+# The rulebook phase: one spare slot per bucket (the hot add's), and the
+# chunk after which the fourth rule is hot-added.
+RULEBOOK_SPARE = 1
+HOT_ADD_AT = 32
+
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
     "window_join_packed": "src/repro/kernels/window_join.py:295",
@@ -141,6 +172,27 @@ def flowsense_rule():
             .where(P.attr(0) < P.attr(1) + 0.3,
                    P.attr(1) < P.attr(2) + 0.3)
             .within(3.0))
+
+
+def flowsense_rulebook():
+    """The FlowSense tenant rulebook (src/repro/data/scenarios/flowsense.py:
+    63, rules at :40-59): the alert chain, the acknowledged spike, and the
+    humidity-gas combo."""
+    from repro_torch.cep import P
+
+    return [flowsense_rule(),
+            P.seq(TEMP, ACK).within(3.0),
+            P.and_(HUMID, GAS).where(P.attr(0) < P.attr(1) + 0.3)
+            .within(2.0)]
+
+
+def hot_added_rule():
+    """The fourth rule, hot-added into the n=2 bucket's spare slot: a
+    humidity drop followed by a gas alarm with ascending readings."""
+    from repro_torch.cep import P
+
+    return (P.seq(HUMID, GAS).where(P.attr(0) < P.attr(1) + 0.3)
+            .within(2.0))
 
 
 def streams(k, n_chunks, base_rate, chunk_cap, seed=0):
@@ -516,6 +568,82 @@ def check_kernels(device, c_packed, c_rowcount, c_join):
     return records
 
 
+def check_per_batch_thresholds(device, c_packed, c_rowcount, batch):
+    """The packed join and the row count with a threshold row per batch
+    element (rows that differ), bit for bit against their plain versions,
+    at the rulebook's shapes (``batch`` = K x rule slots, M_CAP, B_CAP) and
+    a ragged one; a shared (C,) vector (batch stride 0) must equal the
+    same values given as (K, C).  Prints the kernels' times with per-batch
+    and shared thresholds at the rulebook's shapes."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    for (k, cp, cr, m, b) in [(batch, c_packed, c_rowcount, M_CAP, B_CAP),
+                              (5, 7, 5, 1000, 333)]:
+        L, R, ops8, _, mv, bv = packed_inputs(gen, k, cp, m, b, device)
+        step = 0.25 * torch.arange(k, device=device)[:, None]
+        th = coarse(gen, (k, cp), device).abs() + step
+        shared = th[0].contiguous()
+        for t, what in ((th, "per batch"), (shared, "shared")):
+            if mask_err(kops.window_join_packed_bits(L, R, ops8, t, mv, bv),
+                        kops.window_join_packed_bits(
+                            L, R, ops8, t, mv, bv, backend="ref")) != 0:
+                raise AssertionError(f"packed kernel != plain, {what} "
+                                     f"thresholds, at {(k, cp, m, b)}")
+        if mask_err(kops.window_join_packed_bits(L, R, ops8, shared, mv, bv),
+                    kops.window_join_packed_bits(
+                        L, R, ops8, shared.expand(k, cp).contiguous(), mv,
+                        bv)) != 0:
+            raise AssertionError("packed: stride-0 thresholds != (K, C)")
+        rL, rR, rops, _ = rowcount_inputs(gen, k, cr, m, b, device)
+        rth = coarse(gen, (k, cr), device) + 0.25 * torch.arange(
+            k, device=device)[:, None]
+        rshared = rth[0].contiguous()
+        for t, what in ((rth, "per batch"), (rshared, "shared")):
+            if not torch.equal(kops.window_join_rowcount(rL, rR, rops, t),
+                               kops.window_join_rowcount(rL, rR, rops, t,
+                                                         backend="ref")):
+                raise AssertionError(f"rowcount kernel != plain, {what} "
+                                     f"thresholds, at {(k, cr, m, b)}")
+        if not torch.equal(
+                kops.window_join_rowcount(rL, rR, rops, rshared),
+                kops.window_join_rowcount(
+                    rL, rR, rops, rshared.expand(k, cr).contiguous())):
+            raise AssertionError("rowcount: stride-0 thresholds != (K, C)")
+        if k != batch:  # the unpacked join and the pair count take it too
+            for fn in (kops.window_join_bits, kops.window_join_count):
+                got = fn(rL, rR, rops, rth)
+                want = fn(rL, rR, rops, rth, backend="ref")
+                if not all(torch.equal(g, w) for g, w in zip(
+                        *((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,))))):
+                    raise AssertionError(f"{fn.__name__} kernel != plain, "
+                                         f"per-batch thresholds")
+        if k == batch:
+            packed = kops.window_join_packed_bits
+            rowcount = kops.window_join_rowcount
+            times = {
+                "packed, per batch": cuda_ms(
+                    lambda: packed(L, R, ops8, th, mv, bv)),
+                "packed, shared": cuda_ms(
+                    lambda: packed(L, R, ops8, shared, mv, bv)),
+                "rowcount, per batch": cuda_ms(
+                    lambda: rowcount(rL, rR, rops, rth)),
+                "rowcount, shared": cuda_ms(
+                    lambda: rowcount(rL, rR, rops, rshared)),
+            }
+            print(f"   rulebook shapes (batch, C, M, B): packed "
+                  f"{(k, cp, m, b)}, rowcount {(k, cr, m, b)}: " + ", ".join(
+                      f"{n} {v:.4f} ms" for n, v in times.items()))
+    print("   per-batch thresholds: packed join and row count (and, at the "
+          "ragged shape, the unpacked join and the pair count) "
+          "bit-identical to the plain versions; stride-0 shared "
+          "thresholds equal (K, C)")
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -637,7 +765,32 @@ def check_superchunk(plan, want, want_rate):
           f"in-window events {box[0]._runner.in_window_events}, "
           f"escalations "
           f"{tel.escalations}, replans {tel.replans}")
+    # The plain versions through the same window, captured and replayed on
+    # the card like the kernels (their survivor selection is capture-safe).
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    ref_tel, ref_secs, _ = run_main("cuda", plan=plan, backend="ref",
+                                    superchunk=SUPERCHUNK)
+    check_plain_window(f"superchunk {plan}")
+    same_telemetry(ref_tel, tel, f"superchunk {plan}: plain window vs "
+                   "kernel window")
+    print(f"   plain-version window rerun (backend='ref', S={SUPERCHUNK}) on "
+          f"the card: equal integer telemetry ({ref_secs:.3f} s, graph "
+          f"replays {scan.COUNTS['replays']})")
     return launches
+
+
+def check_plain_window(what):
+    """A ``backend="ref"`` window run launched no kernel and ran as graph
+    replays (no eager CUDA window exists)."""
+    from repro_torch.core import scan
+    from repro_torch.kernels import ops as kops
+
+    if any(kops.LAUNCHES.values()) or any(kops.GRAPH_LAUNCHES.values()):
+        raise AssertionError(f"{what}: backend='ref' launched a kernel")
+    if scan.COUNTS["replays"] <= 0 or scan.COUNTS["eager_steps"] != 0:
+        raise AssertionError(f"{what}: plain window counts "
+                             f"{dict(scan.COUNTS)}")
 
 
 def serving_chunks():
@@ -653,9 +806,10 @@ def serving_chunks():
 
 
 def check_serving():
-    """A monitored K=16 order session driven by ``step`` and a second one
-    by ``step_superchunk`` (S=8) over the same 64 chunks; returns the
-    launch counts of the two runs."""
+    """A monitored K=16 order session driven by ``step``, a second one by
+    ``step_superchunk`` (S=8) and a third by ``step_superchunk`` with the
+    plain versions, over the same 64 chunks; returns the launch counts of
+    the first two runs."""
     from repro_torch.core import scan
     from repro_torch.kernels import ops as kops
 
@@ -684,23 +838,217 @@ def check_serving():
                                  f"step_superchunk {getattr(b, f)}")
     if counts["replays"] <= 0 or counts["eager_steps"] != 0:
         raise AssertionError(f"serving window counts {counts}")
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    _, ref_out, ref_tel, _ = bench_run("serving", SUPERCHUNK, chunks,
+                                       backend="ref")
+    check_plain_window("serving")
+    if ref_out.tolist() != out[SUPERCHUNK].tolist():
+        raise AssertionError("plain step_superchunk per-chunk matches != "
+                             "the kernel window's")
+    for f in ("matches", "violations", "replans", "host_syncs", "overflow"):
+        if getattr(ref_tel, f) != getattr(b, f):
+            raise AssertionError(f"serving {f}: plain window "
+                                 f"{getattr(ref_tel, f)} != kernel window "
+                                 f"{getattr(b, f)}")
     print(f"   step: {n_events / secs[1]:.1f} events/s; step_superchunk "
           f"(S={SUPERCHUNK}): {n_events / secs[SUPERCHUNK]:.1f} events/s; "
           f"equal per-chunk matches (total {b.matches}), violations "
           f"{b.violations}, replans {b.replans}, host syncs "
           f"{b.host_syncs}; graph replays {counts['replays']}, in-window "
-          f"events {front.in_window_events}")
+          f"events {front.in_window_events}; the plain-version window "
+          f"(backend='ref') equal")
     return step_launches, launches
 
 
-def bench_run(path, superchunk, chunks):
+# ---------------------------------------------------------------------------
+# The rulebook
+# ---------------------------------------------------------------------------
+
+
+RULE_FIELDS = ("pm_created", "overflow", "neg_rejected",
+               "closure_expansions", "replans", "deployments", "violations",
+               "chunks")
+
+
+def rulebook_counters(rb):
+    """Per rule: the (K,) matches and every counter of ``RULE_FIELDS``."""
+    return [(e.matches.tolist(), tuple(getattr(e, f) for f in RULE_FIELDS))
+            for e in rb._rules]
+
+
+def run_rulebook(chunks, backend=None, superchunk=1, k=None, caps=None):
+    """The FlowSense rulebook through ``open_rulebook(...).run`` over the
+    stacked ``chunks`` (K = ``k``, default K_MAIN; ``caps`` = (buffer,
+    match, chunk) capacities, default the main path's); returns the book,
+    the wall seconds and the peak device memory (bytes)."""
+    import torch
+
+    from repro_torch.cep import RuntimeConfig, open_rulebook
+
+    b_cap, m_cap, cap = caps or (B_CAP, M_CAP, CHUNK_CAP)
+    rb = open_rulebook(flowsense_rulebook(), partitions=k or K_MAIN,
+                       monitor=True,
+                       config=RuntimeConfig(
+                           buffer_capacity=b_cap, match_capacity=m_cap,
+                           chunk_capacity=cap, device="cuda",
+                           backend=backend, superchunk=superchunk),
+                       spare_slots=RULEBOOK_SPARE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rb.run(chunks)
+    torch.cuda.synchronize()
+    return rb, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+
+def solo_matches(rule, chunks):
+    """A monitored K=16 order session stepped over ``chunks`` (the
+    rulebook's immediate-deployment semantics): (K,) matches and the
+    session's telemetry."""
+    import numpy as np
+
+    from repro_torch import cep
+
+    sess = cep.open(rule, partitions=K_MAIN, plan="order", monitor=True,
+                    config=path_config("order", buffer_capacity=B_CAP,
+                                       match_capacity=M_CAP,
+                                       chunk_capacity=CHUNK_CAP,
+                                       device="cuda"))
+    total = np.zeros(K_MAIN, np.int64)
+    for fc in chunks:
+        total += sess.step(fc.chunk, fc.t0, fc.t1)
+    return total, sess.telemetry()
+
+
+def check_rulebook():
+    """The FlowSense rulebook at full width: the per-chunk kernel run
+    (launches counted), zero overflow, three solo sessions, the plain
+    rerun, the superchunk window and a hot add; returns the launch counts
+    of the per-chunk and window runs."""
+    from repro_torch.core import scan
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import window_join
+
+    chunks, n_events = serving_chunks()
+    kops.reset_launch_counts()
+    rb, secs, peak = run_rulebook(chunks)
+    launches = dict(kops.LAUNCHES)
+    for name in PATH_KERNELS["order"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"rulebook never launched {name}")
+    tel = rb.telemetry()
+    if tel.overflow != 0:
+        raise AssertionError(f"rulebook overflow {tel.overflow} at "
+                             f"match_capacity={M_CAP}: the comparisons below "
+                             "are exact only without truncation")
+    print(f"   rulebook: {len(rb.rules)} rules in {rb.n_buckets} buckets, "
+          f"K={K_MAIN}, b_cap={B_CAP}, m_cap={M_CAP}, spare slots "
+          f"{RULEBOOK_SPARE}: {n_events} events in {secs:.3f} s = "
+          f"{n_events / secs:.1f} events/s, peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB")
+    for rid in rb.rules:
+        t = rb.telemetry(rid)
+        print(f"   rule {rid}: matches {t.matches}, neg_rejected "
+              f"{t.neg_rejected}, overflow {t.overflow}, replans "
+              f"{t.replans}, pm_created {rb._rules[rid].pm_created}")
+    print(f"   host syncs {tel.host_syncs}; kernel launches: {launches}")
+    want = rulebook_counters(rb)
+
+    for rid, rule in enumerate(flowsense_rulebook()):
+        total, stel = solo_matches(rule, chunks)
+        if total.tolist() != rb.match_counts[rid].tolist() or \
+                stel.neg_rejected != rb.telemetry(rid).neg_rejected or \
+                stel.overflow != 0:
+            raise AssertionError(f"rule {rid} != its solo session")
+    print("   per-rule matches and negation vetoes equal three solo "
+          "sessions (Session.step), zero overflow")
+
+    kops.reset_launch_counts()
+    ref_rb, ref_secs, ref_peak = run_rulebook(chunks, backend="ref")
+    if any(kops.LAUNCHES.values()):
+        raise AssertionError("rulebook backend='ref' launched a kernel")
+    if rulebook_counters(ref_rb) != want:
+        raise AssertionError("rulebook: plain-version counters differ")
+    print(f"   plain-version rerun: equal per-rule counters ({ref_secs:.3f} "
+          f"s, peak device memory {ref_peak / 2 ** 30:.3f} GiB)")
+
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    win, wsecs, wpeak = run_rulebook(chunks, superchunk=SUPERCHUNK)
+    w_launches = window_launches("rulebook window", PATH_KERNELS["order"])
+    counts = dict(scan.COUNTS)
+    if rulebook_counters(win) != want:
+        raise AssertionError("rulebook: superchunk counters differ")
+    if counts["replays"] <= 0 or counts["eager_steps"] != 0:
+        raise AssertionError(f"rulebook window counts {counts}")
+    print(f"   superchunk={SUPERCHUNK}: equal per-rule counters; "
+          f"{n_events / wsecs:.1f} events/s (per chunk {n_events / secs:.1f}"
+          f"), peak device memory {wpeak / 2 ** 30:.3f} GiB; windows "
+          f"{counts['windows']}, graph captures {counts['captures']} "
+          f"(trace_count {win.trace_count()}), replays {counts['replays']}, "
+          f"in-window events {win.in_window_events}, host syncs "
+          f"{win.telemetry().host_syncs}")
+
+    # Hot add into a spare slot mid-stream: row writes only.
+    scan.reset_counts()
+    hot, _, _ = run_rulebook(chunks[:HOT_ADD_AT], superchunk=SUPERCHUNK)
+    lib, so = window_join._lib, window_join.library_path()
+    built = sorted(os.listdir(window_join.BUILD_DIR))
+    before = (hot.trace_count(), scan.COUNTS["captures"])
+    rid = hot.add_rule(hot_added_rule())
+    hot.run(chunks[HOT_ADD_AT:])
+    after = (hot.trace_count(), scan.COUNTS["captures"])
+    if after != before:
+        raise AssertionError(f"hot add captured: {before} -> {after}")
+    if window_join._lib is not lib or window_join.library_path() != so or \
+            sorted(os.listdir(window_join.BUILD_DIR)) != built:
+        raise AssertionError("hot add rebuilt or reloaded the kernels")
+    total, _ = solo_matches(hot_added_rule(), chunks[HOT_ADD_AT:])
+    if total.tolist() != hot.match_counts[rid].tolist():
+        raise AssertionError("hot-added rule != its solo session")
+    if hot.match_counts[:3].tolist() != rb.match_counts.tolist() or \
+            hot.telemetry().overflow != 0:
+        raise AssertionError("hot add disturbed the other rules")
+    print(f"   hot add of rule {rid} after {HOT_ADD_AT} chunks (window "
+          f"run): no kernel build, no graph capture (trace_count "
+          f"{after[0]}, captures {after[1]}); equals its solo session "
+          f"({int(total.sum())} matches); rules 0-2 undisturbed")
+    return launches, w_launches
+
+
+def check_rulebook_oracle():
+    """A narrow K=4 rulebook on the card against the brute-force oracle,
+    per rule and partition."""
+    from repro_torch.cep import RefEngine
+    from repro_torch.core.fleet import stacked_streams
+
+    k, n_chunks, rate, cap = 4, 24, 12.0, 64
+    rb, _, _ = run_rulebook(
+        list(stacked_streams(streams(k, n_chunks, rate, cap, seed=100))),
+        k=k, caps=(64, 1024, cap))
+    for rid, rule in enumerate(flowsense_rulebook()):
+        want = [RefEngine(rule.build()).run(s)
+                for s in streams(k, n_chunks, rate, cap, seed=100)]
+        if rb.match_counts[rid].tolist() != [r.full_matches for r in want]:
+            raise AssertionError(f"rulebook oracle mismatch, rule {rid}: "
+                                 f"{rb.match_counts[rid].tolist()} vs "
+                                 f"{[r.full_matches for r in want]}")
+        if rb.telemetry(rid).neg_rejected != sum(r.neg_rejected
+                                                 for r in want):
+            raise AssertionError(f"rulebook oracle neg_rejected, rule {rid}")
+    print(f"   K={k} b_cap=64: per-rule matches {rb.match_counts.tolist()} "
+          f"== oracle; replans {rb.telemetry().replans}")
+
+
+def bench_run(path, superchunk, chunks, backend=None):
     """One bench run of a fresh K=16 session over the stacked ``chunks``:
     its first ``BENCH_SPLIT`` chunks (in which a window path captures its
     graphs) and the rest, timed apart.  ``path`` is a plan ("order",
     "tree": ``Session.run``) or "serving" (order plans through ``step``,
     or ``step_superchunk`` with S > 1).  Returns the two segments'
     seconds, the per-chunk matches (serving), the telemetry and the
-    runner or serving front."""
+    runner or serving front.  ``backend="ref"`` runs the plain versions."""
     import numpy as np
     import torch
 
@@ -709,7 +1057,7 @@ def bench_run(path, superchunk, chunks):
     plan = "order" if path == "serving" else path
     cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
                       chunk_capacity=CHUNK_CAP, device="cuda",
-                      superchunk=superchunk)
+                      superchunk=superchunk, backend=backend)
     sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
     secs, got = [], []
@@ -786,27 +1134,40 @@ def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
     ``torch.profiler``, after ``warm`` chunks run unprofiled (in which a
     window path, ``superchunk`` > 1, captures its graphs); prints the
     device-busy share of the wall time, the ops with the most device self
-    time and the join-family kernels the profiler names."""
+    time and the join-family kernels the profiler names.  ``plan`` is
+    "order", "tree" or "rulebook" (the FlowSense rulebook)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import cep
     from repro_torch.core.fleet import stacked_streams
 
-    cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
+    cfg = path_config("order" if plan == "rulebook" else plan,
+                      buffer_capacity=B_CAP, match_capacity=M_CAP,
                       chunk_capacity=CHUNK_CAP, device="cuda",
                       superchunk=superchunk)
-    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
-                    monitor=True, config=cfg)
+    if plan == "rulebook":
+        book = cep.open_rulebook(flowsense_rulebook(), partitions=K_MAIN,
+                                 monitor=True, config=cfg,
+                                 spare_slots=RULEBOOK_SPARE)
+
+        def run(seg, resume):  # a rulebook's stream state always persists
+            book.run(seg)
+    else:
+        sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
+                        monitor=True, config=cfg)
+
+        def run(seg, resume):
+            sess.run(seg, resume=resume)
     chunks = list(stacked_streams(streams(K_MAIN, warm + n_chunks,
                                           BASE_RATE, CHUNK_CAP)))
     if warm:
-        sess.run(chunks[:warm])
+        run(chunks[:warm], False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         t = time.perf_counter()
-        sess.run(chunks[warm:], resume=bool(warm))
+        run(chunks[warm:], bool(warm))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # Device-side rows only (kernels, copies): the op-level rows repeat
@@ -870,6 +1231,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core.engine import make_spec, packed_row_count
+    from repro_torch.core.multipattern import packed_rule_row_count
     from repro_torch.kernels import window_join
 
     t_all = time.perf_counter()
@@ -908,6 +1270,10 @@ def main() -> int:
     # Tree join rows: 2 validity + 2 window + 1 order + 2 per predicate.
     c_join = 2 + 2 + 1 + 2 * len(make_spec(pattern).pred_pairs)
     records = check_kernels("cuda", c_packed, c_rowcount, c_join)
+    # The rulebook's n=3 bucket: packed rows for every ordered pair, the
+    # veto's six rows, K x (one rule + one spare slot) batch elements.
+    check_per_batch_thresholds("cuda", packed_rule_row_count(3), 6,
+                               K_MAIN * (1 + RULEBOOK_SPARE))
     done("kernels", t)
 
     launches, per_chunk = {}, {}
@@ -938,6 +1304,18 @@ def main() -> int:
     launches["serving-step"], launches["serving-superchunk"] = \
         check_serving()
     done("serving", t)
+
+    t = phase("rulebook")
+    launches["rulebook"], launches["rulebook window"] = check_rulebook()
+    done("rulebook", t)
+
+    t = phase("rulebook oracle")
+    check_rulebook_oracle()
+    done("rulebook oracle", t)
+
+    t = phase("rulebook profile")
+    profile_main("rulebook", top=8)
+    done("rulebook profile", t)
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(

@@ -12,6 +12,9 @@
                        config=RuntimeConfig(match_capacity=1024))
     telemetry = session.run(streams)   # on the CUDA device by default
 
+    book = cep.open_rulebook([pattern, other], partitions=8)
+    book.run(streams)                  # per-rule counters: book.match_counts
+
 ``RefEngine`` is exported so a session can be cross-checked against the
 brute-force oracle.
 """
@@ -21,12 +24,15 @@ from ..core.plans import OrderPlan, TreePlan  # noqa: F401
 from ..core.ref_engine import RefEngine  # noqa: F401
 from .config import RuntimeConfig  # noqa: F401
 from .dsl import P  # noqa: F401
+from .rulebook import Rulebook, open_rulebook  # noqa: F401
 from .session import Session, Telemetry, open  # noqa: F401
 
 __all__ = [
     "P",
     "open",
+    "open_rulebook",
     "Session",
+    "Rulebook",
     "Telemetry",
     "RuntimeConfig",
     "Pattern",

@@ -137,8 +137,9 @@ def _row_ops(op, k, device):
 
 def _rows_to_stacks(rows, k, m, b, device):
     """rows: list of (lvals (K, M) | scalar, rvals (K, B) | scalar, op,
-    theta), op a static int or a per-partition (K,) tensor, theta static
-    -> (K, C, M), (K, C, B), (K, C) i32, (C,)."""
+    theta), op a static int or a per-batch (K,) tensor, theta a static
+    float or a per-batch (K,) tensor -> (K, C, M), (K, C, B), (K, C) i32,
+    and (C,) thresholds when every theta is static, else (K, C)."""
     L = torch.stack([_row_values(r[0], (k, m), device) for r in rows], dim=1)
     R = torch.stack([_row_values(r[1], (k, b), device) for r in rows], dim=1)
     if any(isinstance(r[2], torch.Tensor) for r in rows):
@@ -146,7 +147,12 @@ def _rows_to_stacks(rows, k, m, b, device):
     else:
         ops_ = _const(tuple(int(r[2]) for r in rows), torch.int32,
                       device).expand(k, -1).contiguous()
-    ths = _const(tuple(float(r[3]) for r in rows), torch.float32, device)
+    if any(isinstance(r[3], torch.Tensor) for r in rows):
+        ths = torch.stack([_row_values(r[3], (k,), device) for r in rows],
+                          dim=1)
+    else:
+        ths = _const(tuple(float(r[3]) for r in rows), torch.float32,
+                     device)
     return L, R, ops_, ths
 
 

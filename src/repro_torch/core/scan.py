@@ -43,6 +43,16 @@ spares the re-run: on a drifting fleet most windows hold an event, and a
 re-run would replay up to S - 1 chunks each time.  Semantics are
 bit-identical to per-chunk stepping for every window size.
 
+The rulebook's window (``RulebookWindow``, the counterpart of the
+reference's ``make_rulebook_scan``) runs the same way: one bucket step
+per chunk (``core.multipattern``), its carry the bucket's (K, Qb) ring
+buffers and statistics rings, its constant inputs the rule rows, the
+lattice routing, the plan matrix and the lowered invariants.  Every
+chunk takes the one variant (the rulebook has no migration split), so a
+bucket captures once per shape signature: row writes (a rule added into
+a free slot, a removed rule, a replan) change no shape, bucket growth
+does.
+
 Launch counts.  A graph replay makes no kernel-wrapper call, so
 ``kernels.window_join.LAUNCHES`` does not move under replay; the launches
 a capture records are added to ``GRAPH_LAUNCHES`` once per replay
@@ -51,6 +61,7 @@ a capture records are added to ``GRAPH_LAUNCHES`` once per replay
 
 from __future__ import annotations
 
+import gc
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -292,6 +303,8 @@ def _copy_into(dst, src) -> None:
 def _clone(x):
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if type(x) is tuple:
+        return tuple(_clone(f) for f in x)
     return type(x)(*(_clone(f) for f in x))
 
 
@@ -330,6 +343,42 @@ class _Carry:
         monitor = (MonitorState(*leaves[self.n_buffers:])
                    if self.has_monitor else None)
         return buffers, monitor
+
+
+def _capture(dev, step):
+    """Capture ``step`` (a closure over static tensors) as a CUDA graph in
+    the device's shared pool; returns ``(graph, outputs, launches)``.
+
+    Warm-up runs on a side stream against the static tensors before a
+    window copies its carry in, so no chunk reaches the live state twice;
+    the capture records every kernel launch of the step.  Python's cyclic
+    garbage collector is held off during the capture: a collection there
+    may free an earlier session's graph (sessions and their windows form
+    reference cycles), and destroying a graph while a stream captures
+    invalidates the capture.
+    """
+    _wj.load_library()
+    pool = _POOLS.get(dev.index)
+    if pool is None:
+        pool = _POOLS[dev.index] = torch.cuda.graph_pool_handle()
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with _wj.capturing() as launches:
+            with torch.cuda.graph(graph, pool=pool):
+                outs = step()
+    finally:
+        if gc_was_on:
+            gc.enable()
+    COUNTS["captures"] += 1
+    return graph, outs, launches
 
 
 class _Statics(NamedTuple):
@@ -447,31 +496,12 @@ class SuperchunkWindow:
         return key, st
 
     def _graph(self, key, st: _Statics, with_b: bool):
-        """The captured step of this variant (CUDA only).  Warm-up runs on
-        a side stream against the static tensors before the window copies
-        its carry in, so no chunk reaches the live state twice; the
-        capture records every kernel launch of the step."""
+        """The captured step of this variant (CUDA only; ``_capture``)."""
         gkey = (key, with_b)
         entry = self._graphs.get(gkey)
-        if entry is not None:
-            return entry
-        dev = self.fleet.device
-        _wj.load_library()
-        pool = _POOLS.get(dev.index)
-        if pool is None:
-            pool = _POOLS[dev.index] = torch.cuda.graph_pool_handle()
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._step(st, with_b)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with _wj.capturing() as launches:
-            with torch.cuda.graph(graph, pool=pool):
-                outs = self._step(st, with_b)
-        COUNTS["captures"] += 1
-        entry = self._graphs[gkey] = (graph, outs, launches)
+        if entry is None:
+            entry = self._graphs[gkey] = _capture(
+                self.fleet.device, lambda: self._step(st, with_b))
         return entry
 
     # -- the window ----------------------------------------------------------
@@ -533,4 +563,182 @@ class SuperchunkWindow:
             snaps[s].copy_(carry.flat)
         COUNTS["windows"] += 1
         ys = SuperchunkOut(head, rates, sel, snaps, carry)
+        return (*ys.carry_after(n_run - 1), ys)
+
+
+# ---------------------------------------------------------------------------
+# The rulebook window: S chunks × K partitions × Qb rules per window
+# ---------------------------------------------------------------------------
+
+
+class RulebookXs(NamedTuple):
+    """Rulebook window inputs; every leaf leads with ``S``.
+
+    The rulebook deploys plan rows immediately (serving semantics: no [36]
+    migration split), so the only reactive control is the invariant flag;
+    ``enabled`` (host numpy) marks the chunks the window runs, a prefix.
+    ``stack_rulebook_window`` gives numpy leaves, ``upload_rulebook_window``
+    the same leaves on the device in one copy.
+    """
+
+    chunk: Chunk          # (S, K, cap) / (S, K, cap, A) fields
+    t0: object            # (S,) f32
+    t1: object            # (S,) f32
+    enabled: np.ndarray   # (S,) bool
+
+
+# The rulebook window's outputs: a ``SuperchunkOut`` whose ``head`` is
+# (S, 7, K, Qb), ``rates`` (S, K, Qb, n) and ``sel`` (S, K, Qb, n, n), so
+# ``host()`` gives (S, K, Qb) counters, flags and drift.
+RulebookOut = SuperchunkOut
+
+
+def stack_rulebook_window(chunks: Sequence[Chunk], t0s, t1s,
+                          s_pad: int) -> RulebookXs:
+    """Stack a window of stacked ``(K, ...)`` host chunks into rulebook
+    window inputs, padding short windows with disabled repeats of the last
+    chunk, as in the reference."""
+    s = len(chunks)
+    if s == 0:
+        raise ValueError("empty superchunk window")
+    padded = list(chunks) + [chunks[-1]] * (s_pad - s)
+    chunk = Chunk(*(np.stack([np.asarray(c[i]) for c in padded])
+                    for i in range(len(Chunk._fields))))
+    t0a = np.zeros(s_pad, np.float32)
+    t1a = np.zeros(s_pad, np.float32)
+    t0a[:s] = np.asarray(t0s, np.float32)
+    t1a[:s] = np.asarray(t1s, np.float32)
+    enabled = np.zeros(s_pad, bool)
+    enabled[:s] = True
+    return RulebookXs(chunk=chunk, t0=t0a, t1=t1a, enabled=enabled)
+
+
+def upload_rulebook_window(xs: RulebookXs, device) -> RulebookXs:
+    """The window's chunks and clock on ``device``: one host-to-device
+    copy."""
+    up = _upload([*xs.chunk, xs.t0, xs.t1], device)
+    return RulebookXs(Chunk(*up[:4]), up[4], up[5], xs.enabled)
+
+
+class _RulebookStatics(NamedTuple):
+    """The static tensors a rulebook window step reads and updates."""
+
+    carry: _Carry
+    chunk: Chunk
+    t0: torch.Tensor   # () f32
+    t1: torch.Tensor   # () f32
+    ops: object
+    share: object
+    plans: object
+    lowered: object
+
+
+class RulebookWindow:
+    """The window function of one rulebook bucket plane
+    (``multipattern.RulebookPlane``): ``window(state, monitor, ops, share,
+    plans, lowered, xs) -> (state, monitor, RulebookOut)``, the
+    counterpart of the reference's compiled ``make_rulebook_scan``.
+
+    ``state``/``monitor`` are the pre-window carry (copied into the static
+    carry, never written); ``ops``/``share``/``plans``/``lowered`` the
+    bucket's device tensors, window-constant; ``xs`` an uploaded
+    ``RulebookXs``.  The returned carry is the one after the last enabled
+    chunk; ``ys.carry_after(s)`` gives the one after chunk ``s`` (the
+    reference re-runs the window's prefix instead).  On CUDA the step is
+    captured once per static shape signature — a hot-added rule in a free
+    slot changes no shape, bucket growth does — and replayed per chunk;
+    on the CPU it runs eagerly.  ``captures`` counts this window's
+    captures.
+    """
+
+    def __init__(self, plane):
+        self.plane = plane
+        self.captures = 0
+        self._statics: Dict[tuple, _RulebookStatics] = {}
+        self._graphs: Dict[tuple, tuple] = {}
+
+    def _step(self, st: _RulebookStatics):
+        """One chunk from the static inputs; writes the carry into ``st``
+        and returns ``(head (7, K, Qb) i32, rates, sel)``."""
+        carry = st.carry
+        buffers, monitor, res, violated, drift, rates, sel = self.plane.step(
+            carry.buffers, carry.monitor, st.chunk, st.ops, st.share,
+            st.plans, st.lowered, st.t0, st.t1)
+        _copy_into(carry.buffers, buffers)
+        if monitor is not None:
+            _copy_into(carry.monitor, monitor)
+        head = torch.cat([torch.stack(tuple(res)),
+                          violated.to(torch.int32)[None],
+                          drift.to(torch.float32).view(torch.int32)[None]])
+        return head, rates, sel
+
+    def __call__(self, state, monitor, ops, share, plans, lowered,
+                 xs: RulebookXs):
+        monitored = self.plane.monitored
+        enabled = np.asarray(xs.enabled)
+        n_run = int(enabled.sum())
+        if n_run == 0 or not enabled[:n_run].all():
+            raise ValueError("enabled chunks must be a non-empty prefix of "
+                             "the window")
+        dev = state.ts.device
+        consts = (ops, share, plans) + ((lowered,) if monitored else ())
+        key = tuple(tuple(t.shape) for t in _flat(
+            (state, xs.chunk) + consts
+            + ((monitor,) if monitored else ())))
+        st = self._statics.get(key)
+        if st is None:
+            st = self._statics[key] = _RulebookStatics(
+                carry=_Carry(state, monitor if monitored else None),
+                chunk=Chunk(*(c[0].clone() for c in xs.chunk)),
+                t0=torch.zeros((), dtype=torch.float32, device=dev),
+                t1=torch.ones((), dtype=torch.float32, device=dev),
+                ops=_clone(ops), share=_clone(share), plans=_clone(plans),
+                lowered=_clone(lowered) if monitored else None)
+        on_cuda = dev.type == "cuda"
+        graph = None
+        if on_cuda:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = _capture(
+                    dev, lambda: self._step(st))
+                self.captures += 1
+        # The window's carry and constant inputs: device copies.
+        carry = st.carry
+        _copy_into(carry.buffers, state)
+        if monitored:
+            _copy_into(carry.monitor, monitor)
+            _copy_into(st.lowered, lowered)
+        _copy_into(st.ops, ops)
+        _copy_into(st.share, share)
+        _copy_into(st.plans, plans)
+
+        s_len = len(enabled)
+        k, qb = state.ptr.shape[:2]
+        n = self.plane.bspec.n
+        head = torch.zeros((s_len, 7, k, qb), dtype=torch.int32, device=dev)
+        head[:, 6] = _NEG_INF_BITS
+        rates = torch.zeros((s_len, k, qb, n), dtype=torch.float32,
+                            device=dev)
+        sel = torch.zeros((s_len, k, qb, n, n), dtype=torch.float32,
+                          device=dev)
+        snaps = torch.empty((n_run, carry.nbytes), dtype=torch.uint8,
+                            device=dev)
+        for s in range(n_run):
+            _copy_into(st.chunk, Chunk(*(c[s] for c in xs.chunk)))
+            st.t0.copy_(xs.t0[s])
+            st.t1.copy_(xs.t1[s])
+            if on_cuda:
+                g, outs, launches = graph
+                g.replay()
+                _wj.count_replay(launches)
+                COUNTS["replays"] += 1
+            else:
+                outs = self._step(st)
+                COUNTS["eager_steps"] += 1
+            head[s].copy_(outs[0])
+            rates[s].copy_(outs[1])
+            sel[s].copy_(outs[2])
+            snaps[s].copy_(carry.flat)
+        COUNTS["windows"] += 1
+        ys = RulebookOut(head, rates, sel, snaps, carry)
         return (*ys.carry_after(n_run - 1), ys)

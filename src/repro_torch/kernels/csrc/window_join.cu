@@ -2,7 +2,13 @@
 //
 // All join kernels evaluate, for K fleet partitions at once (grid.z = K),
 //
-//     ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[c])
+//     ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[k, c])
+//
+// where theta[k, c] is thetas[k * th_stride + c]: th_stride 0 shares one
+// (C,) vector across the batch (the order and tree engines), th_stride C
+// gives every batch row its own (the rulebook, whose rules differ in
+// window and predicate thresholds along the batch axis).  Every strip
+// launcher takes the stride.
 //
 // with the literal f32 comparison forms l < r + theta, l > r - theta and
 // fabsf(l - r) <= theta.  The thresholds are never folded and the file must
@@ -48,7 +54,7 @@ constexpr int kMaxC = 64;
 //   counts.
 // join_kernel replaces: src/repro/kernels/window_join.py,
 // window_join_pallas / _kernel (the pallas_call at :120):
-//   ok[k, m, b] = AND_c cmp(op[k, c], L, R, th[c]) with the unpacked
+//   ok[k, m, b] = AND_c cmp(op[k, c], L, R, th[k, c]) with the unpacked
 //   dispatch of ref.cmp_op (1 lt, 2 gt, 3 abs, any other code true;
 //   validity enters as two ordinary f32 rows).  Out: bit words and row
 //   counts.
@@ -216,7 +222,7 @@ __device__ __forceinline__ void strip_body(
     const OpT* __restrict__ ops, const float* __restrict__ thetas,
     const uint8_t* __restrict__ mvalid, const uint8_t* __restrict__ bvalid,
     int32_t* __restrict__ bits, int32_t* __restrict__ counts, int C, int M,
-    int B, int W) {
+    int B, int W, int th_stride) {
   extern __shared__ float4 smem4[];
   float* sL = reinterpret_cast<float*>(smem4);                    // (C, 32)
   float* sTh = sL + C * kStripM;                                  // (C,)
@@ -236,7 +242,7 @@ __device__ __forceinline__ void strip_body(
     sL[i] = m < M ? Lk[static_cast<size_t>(c) * M + m] : 0.0f;
   }
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    sTh[i] = thetas[i];
+    sTh[i] = thetas[static_cast<size_t>(k) * th_stride + i];
     sOp[i] = static_cast<int>(ops[static_cast<size_t>(k) * C + i]);
   }
   // Rows of the strip a cell may survive in: below M and (packed) valid.
@@ -304,10 +310,10 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                   const uint8_t* __restrict__ mvalid,
                   const uint8_t* __restrict__ bvalid,
                   int32_t* __restrict__ bits, int32_t* __restrict__ counts,
-                  int C, int M, int B, int W) {
+                  int C, int M, int B, int W, int th_stride) {
   strip_body<int8_t, true, Out::kBitsAndRows>(L, R, ops, thetas, mvalid,
                                               bvalid, bits, counts, C, M, B,
-                                              W);
+                                              W, th_stride);
 }
 
 __global__ void __launch_bounds__(kBitsWarps * 32)
@@ -315,9 +321,10 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                 const int32_t* __restrict__ ops,
                 const float* __restrict__ thetas,
                 int32_t* __restrict__ bits, int32_t* __restrict__ counts,
-                int C, int M, int B, int W) {
+                int C, int M, int B, int W, int th_stride) {
   strip_body<int32_t, false, Out::kBitsAndRows>(
-      L, R, ops, thetas, nullptr, nullptr, bits, counts, C, M, B, W);
+      L, R, ops, thetas, nullptr, nullptr, bits, counts, C, M, B, W,
+      th_stride);
 }
 
 __global__ void __launch_bounds__(kBitsWarps * 32)
@@ -325,20 +332,21 @@ __global__ void __launch_bounds__(kBitsWarps * 32)
                     const int32_t* __restrict__ ops,
                     const float* __restrict__ thetas,
                     int32_t* __restrict__ counts, int C, int M, int B,
-                    int W) {
+                    int W, int th_stride) {
   strip_body<int32_t, false, Out::kRows>(L, R, ops, thetas, nullptr,
                                          nullptr, nullptr, counts, C, M, B,
-                                         W);
+                                         W, th_stride);
 }
 
 __global__ void __launch_bounds__(kBitsWarps * 32)
     count_kernel(const float* __restrict__ L, const float* __restrict__ R,
                  const int32_t* __restrict__ ops,
                  const float* __restrict__ thetas,
-                 int32_t* __restrict__ total, int C, int M, int B, int W) {
+                 int32_t* __restrict__ total, int C, int M, int B, int W,
+                 int th_stride) {
   strip_body<int32_t, false, Out::kTotal>(L, R, ops, thetas, nullptr,
                                           nullptr, nullptr, total, C, M, B,
-                                          W);
+                                          W, th_stride);
 }
 
 // ---------------------------------------------------------------------------
@@ -424,14 +432,16 @@ const char* wj_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i8, thetas (C,) f32,
-// mvalid (K,M) u8, bvalid (K,B) u8 -> bits (K,M,ceil(B/32)) i32,
-// counts (K,M) i32.
+// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i8, thetas (C,) f32 with
+// th_stride 0 or (K,C) f32 with th_stride C, mvalid (K,M) u8,
+// bvalid (K,B) u8 -> bits (K,M,ceil(B/32)) i32, counts (K,M) i32.
 int wj_packed(const void* L, const void* R, const void* ops,
               const void* thetas, const void* mvalid, const void* bvalid,
               void* bits, void* counts, int K, int C, int M, int B,
-              void* stream) {
-  if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+              int th_stride, void* stream) {
+  if (C < 0 || C > kMaxC || (th_stride != 0 && th_stride != C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   packed_kernel<<<strip_grid(K, M), kBitsWarps * 32,
                   strip_smem<Out::kBitsAndRows>(C),
                   static_cast<cudaStream_t>(stream)>>>(
@@ -439,38 +449,43 @@ int wj_packed(const void* L, const void* R, const void* ops,
       static_cast<const int8_t*>(ops), static_cast<const float*>(thetas),
       static_cast<const uint8_t*>(mvalid),
       static_cast<const uint8_t*>(bvalid), static_cast<int32_t*>(bits),
-      static_cast<int32_t*>(counts), C, M, B, (B + 31) / 32);
+      static_cast<int32_t*>(counts), C, M, B, (B + 31) / 32, th_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32
-// -> out (K,M) i32.
+// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32 with
+// th_stride 0 or (K,C) f32 with th_stride C -> out (K,M) i32.
 int wj_rowcount(const void* L, const void* R, const void* ops,
                 const void* thetas, void* out, int K, int C, int M, int B,
-                void* stream) {
-  if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+                int th_stride, void* stream) {
+  if (C < 0 || C > kMaxC || (th_stride != 0 && th_stride != C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   rowcount_kernel<<<strip_grid(K, M), kBitsWarps * 32,
                     strip_smem<Out::kRows>(C),
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int32_t*>(ops), static_cast<const float*>(thetas),
-      static_cast<int32_t*>(out), C, M, B, (B + 31) / 32);
+      static_cast<int32_t*>(out), C, M, B, (B + 31) / 32, th_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32
-// -> bits (K,M,ceil(B/32)) i32, counts (K,M) i32.
+// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32 with
+// th_stride 0 or (K,C) f32 with th_stride C -> bits (K,M,ceil(B/32)) i32,
+// counts (K,M) i32.
 int wj_join(const void* L, const void* R, const void* ops,
             const void* thetas, void* bits, void* counts, int K, int C,
-            int M, int B, void* stream) {
-  if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+            int M, int B, int th_stride, void* stream) {
+  if (C < 0 || C > kMaxC || (th_stride != 0 && th_stride != C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   join_kernel<<<strip_grid(K, M), kBitsWarps * 32,
                 strip_smem<Out::kBitsAndRows>(C),
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int32_t*>(ops), static_cast<const float*>(thetas),
       static_cast<int32_t*>(bits), static_cast<int32_t*>(counts), C, M, B,
-      (B + 31) / 32);
+      (B + 31) / 32, th_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -488,18 +503,21 @@ int wj_select(const void* bits, const void* counts, const void* ends,
   return static_cast<int>(cudaGetLastError());
 }
 
-// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32
-// -> out (K,) i32, which the caller zeroes before the launch.
+// L (K,C,M) f32, R (K,C,B) f32, ops (K,C) i32, thetas (C,) f32 with
+// th_stride 0 or (K,C) f32 with th_stride C -> out (K,) i32, which the
+// caller zeroes before the launch.
 int wj_count(const void* L, const void* R, const void* ops,
              const void* thetas, void* out, int K, int C, int M, int B,
-             void* stream) {
-  if (C < 0 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+             int th_stride, void* stream) {
+  if (C < 0 || C > kMaxC || (th_stride != 0 && th_stride != C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   count_kernel<<<strip_grid(K, M), kBitsWarps * 32,
                  strip_smem<Out::kTotal>(C),
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const int32_t*>(ops), static_cast<const float*>(thetas),
-      static_cast<int32_t*>(out), C, M, B, (B + 31) / 32);
+      static_cast<int32_t*>(out), C, M, B, (B + 31) / 32, th_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

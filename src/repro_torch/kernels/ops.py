@@ -15,7 +15,9 @@ plans), which give the mask as bit words plus row counts, then
 ``select_survivors``; ``window_join_packed`` and ``window_join`` give the
 same mask as bool (on the card unpacked from the words), for tests.  The
 CUDA kernels take a leading fleet axis K (``(K, C, M)``); the plain
-versions take it or not.
+versions take it or not.  Every join and count takes its thresholds as
+``(C,)`` (shared by the batch) or ``(K, C)`` (one row per batch element,
+the rulebook's rules).
 The JAX package's ``REPRO_KERNEL_BACKEND`` environment override keeps its
 JAX meaning and is not read here.
 """

@@ -25,7 +25,9 @@ The two joins that feed the compaction also come as bit words
 (``*_bits_ref``): the mask packed 32 columns to an int32 word (bit ``j``
 of word ``w`` is column ``32 w + j``, tail bits 0) beside each row's
 survivor count, which ``select_survivors_ref`` turns into the reference's
-``jnp.nonzero(size=out_cap, fill_value=m*b)`` indices.
+``jnp.nonzero(size=out_cap, fill_value=m*b)`` indices.  Nothing here
+syncs with the host, so a window step that runs the plain versions on the
+card (``backend="ref"``) can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -159,21 +161,69 @@ def window_join_packed_bits_ref(L, R, ops8, thetas, mvalid, bvalid):
                                                    mvalid, bvalid))
 
 
+def _popcount(words):
+    """Set bits per int32 word, as int64 (a SWAR count in elementwise ops:
+    no host sync)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _select_in_word(word, rank):
+    """Position of the set bit of ``word`` (uint32 values in int64) with
+    ``rank`` set bits below it: a binary search over halves, quarters,
+    ... of the word, by popcounts of its low bits."""
+    pos = torch.zeros_like(word)
+    for s in (16, 8, 4, 2, 1):
+        below = _popcount((word >> pos) & ((1 << s) - 1))
+        up = rank >= below
+        rank = torch.where(up, rank - below, rank)
+        pos = torch.where(up, pos + s, pos)
+    return pos
+
+
+# Output slots per partition that one pass of the plain selection handles
+# (its temporaries are a few int64 per slot).
+_SELECT_BLOCK = 1 << 20
+
+
 def select_survivors_ref(bits, row_counts, b, out_cap):
     """The first ``out_cap`` surviving cells in row-major order, as flat
     indices ``m * b + col`` — (..., out_cap) int64, ``M * b`` past the
     last survivor (the reference's ``jnp.nonzero(flat, size=out_cap,
     fill_value=m*b)`` per partition).
 
-    The plain version reads the survivors off the unpacked mask alone
-    (the row counts are its popcounts), one ``torch.nonzero`` per
-    partition; on a CUDA tensor each is a host sync.
+    Fixed-size and free of host syncs, so a CUDA graph can capture it: the
+    inclusive prefix of the words' popcounts ranks them row-major, output
+    slot ``j`` takes the first word whose prefix passes ``j``
+    (``torch.searchsorted``), and its bit is the word's set bit with
+    ``j - start`` set bits below it.  Slots ``j`` at or past the total
+    (no such word) get ``M * b``.  The slots go in blocks of
+    ``_SELECT_BLOCK`` per partition, so memory stays bounded when
+    ``out_cap`` is far past the survivors.  The row counts (the words'
+    popcounts per row) are not read.
     """
-    *lead, m, _ = bits.shape
-    flat = unpack_bits(bits, b).reshape(math.prod(lead), m * b)
-    idx = torch.full((flat.shape[0], out_cap), m * b, dtype=torch.int64,
-                     device=bits.device)
-    for i in range(flat.shape[0]):
-        found = torch.nonzero(flat[i]).flatten()[:out_cap]
-        idx[i, :found.numel()] = found
-    return idx.reshape(*lead, out_cap)
+    *lead, m, w = bits.shape
+    n_words = m * w
+    dev = bits.device
+    out = torch.full((math.prod(lead), out_cap), m * b, dtype=torch.int64,
+                     device=dev)
+    if n_words == 0:
+        return out.reshape(*lead, out_cap)
+    words = bits.reshape(math.prod(lead), n_words)
+    pc = _popcount(words)
+    incl = torch.cumsum(pc, dim=1)
+    for j0 in range(0, out_cap, _SELECT_BLOCK):
+        j = torch.arange(j0, min(j0 + _SELECT_BLOCK, out_cap), device=dev)
+        j = j.expand(words.shape[0], j.shape[0]).contiguous()
+        wi = torch.searchsorted(incl, j, right=True)  # first incl > j
+        live = wi < n_words
+        wi = torch.clamp(wi, max=n_words - 1)
+        rank = j - (torch.gather(incl, 1, wi) - torch.gather(pc, 1, wi))
+        word = torch.gather(words, 1, wi).to(torch.int64) & 0xFFFFFFFF
+        col = _select_in_word(word, rank)
+        idx = (wi // w) * b + (wi % w) * 32 + col
+        out[:, j0:j0 + j.shape[1]] = torch.where(live, idx, m * b)
+    return out.reshape(*lead, out_cap)

@@ -4,7 +4,13 @@ The hot loop of the vectorized CEP engine is, per plan step, a dense
 cross-evaluation of ``C`` constraint rows between ``M`` partial matches and
 ``B`` buffered events, for every fleet partition ``k``:
 
-    ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[c]).
+    ok[k, m, b] = AND_c cmp(op[k, c], L[k, c, m], R[k, c, b], theta[k, c]).
+
+Every join and count takes the thresholds as one ``(C,)`` vector shared
+by the batch (the order and tree engines) or as ``(K, C)``, a row per
+batch element (the rulebook, whose rules differ in window and predicate
+thresholds); the kernel reads ``thetas[k * th_stride + c]`` with
+``th_stride`` 0 or C, so a shared vector is neither copied nor expanded.
 
 Five kernels, written by hand for Hopper in ``csrc/window_join.cu``:
 
@@ -167,10 +173,10 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wj_packed.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-        lib.wj_join.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.wj_packed.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.wj_join.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         for fn in (lib.wj_rowcount, lib.wj_count):
-            fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+            fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.wj_select.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         for fn in (lib.wj_packed, lib.wj_join, lib.wj_rowcount, lib.wj_count,
                    lib.wj_select):
@@ -230,6 +236,16 @@ def _launched(rc, lib, name):
     LAUNCHES[name] += 1
 
 
+def _th_stride(thetas, K, C, device) -> int:
+    """Checks ``thetas`` as one ``(C,)`` vector shared by the batch or a
+    ``(K, C)`` row per batch element; returns the kernel's batch stride
+    (0 or C)."""
+    shared = thetas.dim() == 1
+    _check("thetas", thetas, torch.float32, (C,) if shared else (K, C),
+           device)
+    return 0 if shared else C
+
+
 def _bit_outputs(K, M, B, device):
     """Empty bit words (K, M, ceil(B/32)) and row counts (K, M), int32."""
     return (torch.empty((K, M, -(-B // 32)), dtype=torch.int32,
@@ -242,8 +258,9 @@ def window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid, bvalid):
     ``(K, M, ceil(B/32))`` int32 and ``(K, M)`` int32.
 
     L: (K, C, M) f32, R: (K, C, B) f32, ops8: (K, C) int8, thetas: (C,)
-    f32, mvalid: (K, M), bvalid: (K, B) int8, uint8 or bool (nonzero is
-    valid, as in the plain version); all contiguous on one CUDA device.
+    or (K, C) f32, mvalid: (K, M), bvalid: (K, B) int8, uint8 or bool
+    (nonzero is valid, as in the plain version); all contiguous on one
+    CUDA device.
     """
     lib, (K, C, M, B) = _dims(L, R)
     dev = L.device
@@ -251,7 +268,7 @@ def window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid, bvalid):
     _check("L", L, torch.float32, (K, C, M), dev)
     _check("R", R, torch.float32, (K, C, B), dev)
     _check("ops8", ops8, torch.int8, (K, C), dev)
-    _check("thetas", thetas, torch.float32, (C,), dev)
+    th_stride = _th_stride(thetas, K, C, dev)
     _check("mvalid", mvalid, torch.uint8, (K, M), dev)
     _check("bvalid", bvalid, torch.uint8, (K, B), dev)
     bits, counts = _bit_outputs(K, M, B, dev)
@@ -262,7 +279,8 @@ def window_join_packed_bits_cuda(L, R, ops8, thetas, mvalid, bvalid):
         rc = lib.wj_packed(L.data_ptr(), R.data_ptr(), ops8.data_ptr(),
                            thetas.data_ptr(), mvalid.data_ptr(),
                            bvalid.data_ptr(), bits.data_ptr(),
-                           counts.data_ptr(), K, C, M, B, stream)
+                           counts.data_ptr(), K, C, M, B, th_stride,
+                           stream)
     _launched(rc, lib, "window_join_packed")
     return bits, counts
 
@@ -277,15 +295,15 @@ def window_join_packed_cuda(L, R, ops8, thetas, mvalid, bvalid):
 
 def _unpacked(L, R, ops, thetas):
     """Checks the unpacked operands: L (K, C, M) f32, R (K, C, B) f32,
-    ops (K, C) int32, thetas (C,) f32, all contiguous on one CUDA device.
-    Returns the library and (K, C, M, B)."""
+    ops (K, C) int32, thetas (C,) or (K, C) f32, all contiguous on one
+    CUDA device.  Returns the library and the launch's (K, C, M, B,
+    th_stride)."""
     lib, (K, C, M, B) = _dims(L, R)
     dev = L.device
     _check("L", L, torch.float32, (K, C, M), dev)
     _check("R", R, torch.float32, (K, C, B), dev)
     _check("ops", ops, torch.int32, (K, C), dev)
-    _check("thetas", thetas, torch.float32, (C,), dev)
-    return lib, (K, C, M, B)
+    return lib, (K, C, M, B, _th_stride(thetas, K, C, dev))
 
 
 def _launch(lib, fn, name, L, R, ops, thetas, outs, dims):
@@ -301,25 +319,27 @@ def _launch(lib, fn, name, L, R, ops, thetas, outs, dims):
 
 def window_join_rowcount_cuda(L, R, ops, thetas):
     """cnt[k, m] = sum_b AND_c cmp(...) — (K, M) int32."""
-    lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
+    lib, dims = _unpacked(L, R, ops, thetas)
+    K, _, M, _, _ = dims
     out = torch.empty((K, M), dtype=torch.int32, device=L.device)
     if out.numel() == 0:
         return out
     _launch(lib, lib.wj_rowcount, "window_join_rowcount", L, R, ops, thetas,
-            (out,), (K, C, M, B))
+            (out,), dims)
     return out
 
 
 def window_join_bits_cuda(L, R, ops, thetas):
     """The unpacked join's mask, ok[k, m, b] = AND_c cmp(op[k, c],
-    L[k, c, m], R[k, c, b], th[c]), as bit words and row counts:
+    L[k, c, m], R[k, c, b], th[k, c]), as bit words and row counts:
     ``(K, M, ceil(B/32))`` int32 and ``(K, M)`` int32."""
-    lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
+    lib, dims = _unpacked(L, R, ops, thetas)
+    K, _, M, B, _ = dims
     bits, counts = _bit_outputs(K, M, B, L.device)
     if counts.numel() == 0:
         return bits, counts
     _launch(lib, lib.wj_join, "window_join", L, R, ops, thetas,
-            (bits, counts), (K, C, M, B))
+            (bits, counts), dims)
     return bits, counts
 
 
@@ -333,14 +353,15 @@ def window_join_cuda(L, R, ops, thetas):
 def window_join_count_cuda(L, R, ops, thetas):
     """cnt[k] = sum_{m, b} AND_c cmp(...) — (K,) int32, without storing
     the mask."""
-    lib, (K, C, M, B) = _unpacked(L, R, ops, thetas)
+    lib, dims = _unpacked(L, R, ops, thetas)
+    K, _, M, B, _ = dims
     if M * B >= 2 ** 31:
         raise ValueError(f"M*B = {M * B} pairs overflow the int32 count")
     out = torch.zeros((K,), dtype=torch.int32, device=L.device)
     if K == 0 or M * B == 0:
         return out
     _launch(lib, lib.wj_count, "window_join_count", L, R, ops, thetas,
-            (out,), (K, C, M, B))
+            (out,), dims)
     return out
 
 

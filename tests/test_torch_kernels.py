@@ -10,10 +10,17 @@ and values on a coarse grid so that ties (``l == r + theta``) occur.  The
 joins that feed the compaction also come as bit words plus row counts:
 those must equal the JAX masks packed with numpy, and the survivor
 selection must equal ``jnp.nonzero(size=out_cap, fill_value=m*b)``.  The
-CUDA kernels themselves run only on a GPU: the ``gpu``-marked tests skip
-here.
+packed join and the row count also take a threshold row per batch
+element (the rulebook's rules), held against the JAX references under
+``jax.vmap``; the capture-safe survivor selection is held against the
+``torch.nonzero`` loop it replaced.  The CUDA kernels themselves run only
+on a GPU: the ``gpu``-marked tests skip here.
 """
 
+import dataclasses
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -517,3 +524,195 @@ def test_cuda_counts_match_plain_across_edges(C, cuda_device, rng):
                     assert (ops.window_join_rowcount(*args) == B).all()
                     assert ops.window_join_count(*args).tolist() == \
                         [M * B] * K
+
+
+# ---------------------------------------------------------------------------
+# Thresholds per batch element (the rulebook's flattened (K, Qb) axis)
+# ---------------------------------------------------------------------------
+
+
+def _batch_case(rng, K, C, M, B):
+    """K stacked cases whose threshold rows all differ (row k shifted by
+    0.25 k on the 0.25 grid), op codes 0-3."""
+    cases = [_case(rng, C, M, B) for _ in range(K)]
+    L, R, op, th, mv, bv = (np.stack([c[i] for c in cases])
+                            for i in range(6))
+    th = (th + 0.25 * np.arange(K, dtype=np.float32)[:, None]).astype(
+        np.float32)
+    return L, R, op, th, mv, bv
+
+
+@pytest.mark.parametrize("K,C,M,B", [(3, 10, 70, 33), (4, 6, 129, 64),
+                                     (2, 1, 1, 1), (5, 16, 40, 97)])
+def test_per_batch_thresholds_plain_match_jax_vmap(K, C, M, B, rng):
+    """``(K, C)`` thresholds: the plain packed join (bool and bit words),
+    row count, unpacked join and pair count equal the JAX references under
+    ``jax.vmap`` over the batch, exactly, and each batch row equals the
+    one-row call with its own threshold vector."""
+    L, R, op, th, mv, bv = _batch_case(rng, K, C, M, B)
+    op8 = op.astype(np.int8)
+    want = np.asarray(jax.vmap(jax_packed_ref)(L, R, op8, th, mv, bv))
+    got = ref.window_join_packed_ref(*_t(L, R, op8, th, mv, bv)).numpy()
+    assert (got == want).all()
+    _assert_bits(ops.window_join_packed_bits(*_t(L, R, op8, th, mv, bv)),
+                 want)
+    want_rc = np.asarray(jax.vmap(jax_rowcount_ref)(L, R, op, th))
+    got_rc = ops.window_join_rowcount(*_t(L, R, op, th)).numpy()
+    assert np.array_equal(got_rc, want_rc)
+    want_join = np.asarray(jax.vmap(jax_join_ref)(L, R, op, th))
+    _assert_bits(ops.window_join_bits(*_t(L, R, op, th)), want_join)
+    assert np.array_equal(ops.window_join_count(*_t(L, R, op, th)).numpy(),
+                          want_join.sum(axis=(1, 2)))
+    for k in range(K):
+        one = _t(L[k], R[k], op8[k], th[k], mv[k], bv[k])
+        assert (ref.window_join_packed_ref(*one).numpy() == got[k]).all()
+        assert np.array_equal(
+            ref.window_join_rowcount_ref(*_t(L[k], R[k], op[k],
+                                             th[k])).numpy(), got_rc[k])
+
+
+def test_engine_row_stacks_carry_per_batch_thresholds(rng):
+    """``engine._rows_to_stacks``: static thetas give one shared ``(C,)``
+    vector (the order and tree engines); a per-batch ``(K,)`` theta in any
+    row gives ``(K, C)``, static rows broadcast."""
+    from repro_torch.core.engine import _rows_to_stacks
+
+    k, m, b = 3, 5, 4
+    lv = torch.from_numpy(_coarse(rng, (k, m)))
+    rv = torch.from_numpy(_coarse(rng, (k, b)))
+    w = torch.tensor([1.0, 2.5, 0.75])
+    static = [(lv, rv, 1, 0.5), (lv, 1.0, 2, 0.25)]
+    *_, ths = _rows_to_stacks(static, k, m, b, torch.device("cpu"))
+    assert ths.shape == (2,) and ths.tolist() == [0.5, 0.25]
+    *_, ths = _rows_to_stacks(static + [(lv, rv, 1, w)], k, m, b,
+                              torch.device("cpu"))
+    assert ths.shape == (k, 3)
+    assert ths.tolist() == [[0.5, 0.25, 1.0], [0.5, 0.25, 2.5],
+                            [0.5, 0.25, 0.75]]
+
+
+def _select_nonzero_loop(bits, row_counts, b, out_cap):
+    """The plain selection before it became capture-safe: one
+    ``torch.nonzero`` per partition over the unpacked mask, sliced to a
+    data-dependent length (the oracle of the rewrite)."""
+    *lead, m, _ = bits.shape
+    flat = ref.unpack_bits(bits, b).reshape(math.prod(lead), m * b)
+    idx = torch.full((flat.shape[0], out_cap), m * b, dtype=torch.int64)
+    for i in range(flat.shape[0]):
+        found = torch.nonzero(flat[i]).flatten()[:out_cap]
+        idx[i, :found.numel()] = found
+    return idx.reshape(*lead, out_cap)
+
+
+# (K, M, B, survivor density, out_cap): the selection cases above, plus
+# out_cap exactly the survivor total, one short of it, zero, full rows,
+# ragged words and a single partition without a K axis.
+SELECT_EDGE_CASES = SELECT_CASES + [
+    (2, 5, 32, 1.0, 160), (2, 5, 32, 1.0, 159), (3, 4, 64, 0.9, 0),
+    (2, 3, 33, 1.0, 100), (4, 17, 95, 0.1, 7), (2, 1, 1, 0.0, 1),
+]
+
+
+@pytest.mark.parametrize("K,M,B,density,out_cap", SELECT_EDGE_CASES)
+def test_select_equals_the_nonzero_loop_it_replaced(K, M, B, density,
+                                                    out_cap, rng):
+    """The fixed-size selection (popcount prefix + ``searchsorted``, no
+    host sync) is bit-identical to the ``torch.nonzero`` loop: the
+    ``M * b`` fill, zero survivors, ``out_cap`` past ``M * b``, overflow."""
+    mask = rng.random((K, M, B)) < density
+    bits = torch.from_numpy(_np_bits(mask))
+    counts = torch.from_numpy(mask.sum(-1).astype(np.int32))
+    got = ref.select_survivors_ref(bits, counts, B, out_cap)
+    assert got.dtype == torch.int64 and got.shape == (K, out_cap)
+    assert torch.equal(got, _select_nonzero_loop(bits, counts, B, out_cap))
+    assert torch.equal(ref.select_survivors_ref(bits[0], counts[0], B,
+                                                out_cap), got[0])
+
+
+@pytest.mark.parametrize("K,M,B,density,out_cap",
+                         [(2, 9, 70, 0.4, 999), (3, 30, 40, 0.3, 50),
+                          (2, 5, 32, 1.0, 160)])
+def test_select_in_slot_blocks_equals_one_pass(K, M, B, density, out_cap,
+                                              rng, monkeypatch):
+    """The plain selection's slot blocks (which bound its memory when
+    ``out_cap`` is far past the survivors) change nothing: 7-slot blocks
+    equal the nonzero loop."""
+    mask = rng.random((K, M, B)) < density
+    bits = torch.from_numpy(_np_bits(mask))
+    counts = torch.from_numpy(mask.sum(-1).astype(np.int32))
+    monkeypatch.setattr(ref, "_SELECT_BLOCK", 7)
+    assert torch.equal(ref.select_survivors_ref(bits, counts, B, out_cap),
+                       _select_nonzero_loop(bits, counts, B, out_cap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,C,M,B", [(32, 10, 8192, 1024),
+                                     (5, 6, 1000, 333), (3, 64, 37, 1030)])
+def test_cuda_per_batch_thresholds_match_plain(K, C, M, B, cuda_device,
+                                               rng):
+    """``(K, C)`` thresholds (rows that differ) through the kernels'
+    batch stride: the packed join's words and row counts and the row count
+    (and, at the smaller shapes, the unpacked join and the pair count)
+    equal the plain versions bit for bit; a shared ``(C,)`` vector (stride
+    0) equals the same values as ``(K, C)``."""
+    L, R, op, th, mv, bv = (torch.from_numpy(a).to(cuda_device)
+                            for a in _batch_case(rng, K, C, M, B))
+    op8, mv, bv = op.to(torch.int8), mv > 0, bv > 0
+    shared = th[0].contiguous()
+    rows = shared.expand(K, C).contiguous()
+    for t in (th, shared):
+        got = ops.window_join_packed_bits(L, R, op8, t, mv, bv)
+        want = ops.window_join_packed_bits(L, R, op8, t, mv, bv,
+                                           backend="ref")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(ops.window_join_rowcount(L, R, op, t),
+                           ops.window_join_rowcount(L, R, op, t,
+                                                    backend="ref"))
+    a = ops.window_join_packed_bits(L, R, op8, shared, mv, bv)
+    b = ops.window_join_packed_bits(L, R, op8, rows, mv, bv)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(ops.window_join_rowcount(L, R, op, shared),
+                       ops.window_join_rowcount(L, R, op, rows))
+    if M * B <= 1 << 20:  # the unpacked join and the pair count take it too
+        for fn in (ops.window_join_bits, ops.window_join_count):
+            got, want = fn(L, R, op, th), fn(L, R, op, th, backend="ref")
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                assert torch.equal(g, w), fn.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["order", "tree"])
+def test_cuda_plain_window_equals_kernel_window(plan, cuda_device):
+    """A ``backend="ref"`` superchunk window captures and runs on the card
+    (the plain selection has a fixed size and no host sync) and equals the
+    kernel window, counter for counter."""
+    from repro_torch import cep
+    from repro_torch.cep import P, RuntimeConfig
+    from repro_torch.core import scan
+    from repro_torch.data.cep_streams import StreamConfig, traffic_stream
+
+    rule = (P.seq(0, P.neg(3), 1, 2)
+            .where(P.attr(0) < P.attr(1) + 0.3, P.attr(1) < P.attr(2) + 0.3)
+            .within(3.0))
+    caps = dict(max_invariants=8, max_terms=16) if plan == "tree" else {}
+    scfg = StreamConfig(n_types=4, n_chunks=24, chunk_cap=64, base_rate=12.0,
+                        shift_every=16.0)
+    tels = []
+    for backend in (None, "ref"):
+        scan.reset_counts()
+        sess = cep.open(rule, partitions=4, plan=plan, monitor=True,
+                        config=RuntimeConfig(
+                            buffer_capacity=64, match_capacity=1024,
+                            chunk_capacity=64, device="cuda",
+                            backend=backend, superchunk=8, **caps))
+        tels.append(sess.run([traffic_stream(dataclasses.replace(
+            scfg, seed=100 + p)) for p in range(4)]))
+        assert scan.COUNTS["replays"] > 0 and scan.COUNTS["eager_steps"] == 0
+    kernel, plain = tels
+    for f in ("matches", "overflow", "neg_rejected", "replans",
+              "deployments", "violations", "host_syncs", "escalations",
+              "migration_partition_chunks"):
+        assert getattr(kernel, f) == getattr(plain, f), f
+    assert kernel.per_partition_matches.tolist() == \
+        plain.per_partition_matches.tolist()

@@ -300,11 +300,13 @@ def test_port_imports_neither_jax_nor_repro():
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     modules = [
         "repro_torch", "repro_torch.cep", "repro_torch.cep.config",
-        "repro_torch.cep.dsl", "repro_torch.cep.session",
+        "repro_torch.cep.dsl", "repro_torch.cep.rulebook",
+        "repro_torch.cep.session",
         "repro_torch.core", "repro_torch.core.adaptation",
         "repro_torch.core.convert", "repro_torch.core.decision",
         "repro_torch.core.engine", "repro_torch.core.fleet",
         "repro_torch.core.greedy", "repro_torch.core.invariants",
+        "repro_torch.core.multipattern",
         "repro_torch.core.patterns", "repro_torch.core.plans",
         "repro_torch.core.ref_engine", "repro_torch.core.scan",
         "repro_torch.core.stats", "repro_torch.core.zstream",

@@ -281,3 +281,26 @@ def test_cuda_graph_window_equals_eager_window(planner, cuda_device):
     per_chunk = port_runner(4, planner=planner, device="cuda").run(
         streams(4))
     assert_metrics_identical(got, per_chunk)
+
+
+@pytest.mark.gpu
+def test_cuda_capture_survives_garbage_collection(cuda_device):
+    """A session and its windows form reference cycles, so a dropped
+    session's captured graphs are freed by Python's cyclic collector,
+    whenever it runs.  Destroying a graph while a stream captures
+    invalidates the capture, so the collector is held off during one;
+    here it is set to run on nearly every allocation while a new session
+    captures, with a dropped session's graphs waiting to be collected."""
+    import gc
+
+    eager = port_runner(4, superchunk=4).run(streams(4))
+    dropped = port_runner(4, superchunk=4, device="cuda")
+    dropped.run(streams(4))
+    del dropped
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        got = port_runner(4, superchunk=4, device="cuda").run(streams(4))
+    finally:
+        gc.set_threshold(*old)
+    assert_metrics_identical(got, eager)
