@@ -43,9 +43,10 @@ Phases (each prints its seconds; any failure exits non-zero):
               one replay of a captured CUDA graph, no host sync inside the
               window); its integer telemetry and per-partition matches
               must equal the per-chunk kernel run of phase 4 / 7 (itself
-              held against the plain versions), and so must the same
-              window run with ``backend="ref"`` (the plain versions,
-              captured and replayed on the card).  Prints events/s beside
+              held against the plain versions), and over the stream's
+              first 32 chunks the window run with ``backend="ref"`` (the
+              plain versions, captured and replayed on the card) must
+              equal the kernel window.  Prints events/s beside
               the per-chunk run's, peak memory, graph captures and
               replays, in-window events (windows cut at a flag or an
               overflow and continued from the carry of that chunk), and per
@@ -74,7 +75,39 @@ Phases (each prints its seconds; any failure exits non-zero):
               captures no graph, and equals its solo session.  Prints
               events/s and peak memory of the per-chunk and window runs;
               then 16 chunks of the per-chunk rulebook under
-              ``torch.profiler`` (as phase 6).
+              ``torch.profiler`` (as phase 6);
+12. adaptive loop — the paper's single-stream Algorithm 1
+              (``repro_torch.core.AdaptiveRunner``) at its §5 setup
+              (benchmarks/common.py::run_one): the five pattern sets at
+              size 8 (the composite's three branches merged with
+              ``merge_metrics``), 120 traffic chunks, adaptive match
+              capacities, per planner (greedy: order engine; zstream: tree
+              engine) under the four policies, with the launch counters
+              zeroed just before and read just after; matches must not
+              depend on the policy, no overflow may be left after
+              escalation, the invariant policy at d=0 makes no false
+              positive, and (seq, invariant) rerun with ``backend="ref"``
+              gives equal integer metrics.  Prints events/s (host clock),
+              replans, deployments, migration chunks, the capacities
+              reached and the D+A share per run; then 16 chunks of one
+              run under ``torch.profiler``;
+13. adaptive oracle — each set at size 4 over 20 chunks, both
+              planners, against ``RefEngine``;
+14. monitored engine — ``MonitoredEngine`` (K = 1), order and tree
+              plans, replanning on each flag: the fused flag equals the
+              host mirror every chunk, and flags fire;
+15. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
+              at its own partitions over its 80 chunks, replayed per
+              segment under the adaptive (per chunk and S=8), static and
+              pinned configurations, with the semantic replay gates
+              (silent control segments, adaptive == static per segment,
+              expected drift deployments, the pinned baseline loses
+              matches) and the whole run against ``RefEngine``; then the
+              FlowSense 3-rule rulebook's control gate and oracle.
+              The kernels phase also holds the kernels at the adaptive
+              loop's single-stream shapes (K = 1: the packed join and
+              row count at M = 8192, B = 128; the tree join and the
+              selection at the escalation limit M = B = 32768).
 
 Launch counts: the counters are zeroed just before each path runs and
 read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
@@ -82,7 +115,9 @@ a graph replay calls no wrapper, so the window paths also count
 ``GRAPH_LAUNCHES`` (the launches a capture recorded, once per replay), and
 each of their kernels must show graph launches.  A window path's
 ``launches_by_path`` entry is the sum of the two; the rulebook's are
-"rulebook" and "rulebook window".
+"rulebook" and "rulebook window", the adaptive loop's "adaptive-greedy"
+and "adaptive-zstream" (all runs of a planner).  A kernel's record also
+holds its ``single_stream`` shape, times and bound.
 
 The survivor selection's record is a JSON line of its own; the line
 before the last is the JSON ``kernels`` record of the four kernels that
@@ -136,6 +171,9 @@ TREE_CAPS = dict(max_invariants=8, max_terms=16)
 TREE_MAX_ESCALATIONS = 1
 # Chunks per window of the superchunk and serving phases.
 SUPERCHUNK = 8
+# Chunks of the superchunk phases' plain-version window reruns (a prefix
+# of the stream; the tree path's took 145 s over all 64).
+WINDOW_REF_CHUNKS = 32
 # --bench times each run's first chunks (graph captures) apart.
 BENCH_SPLIT = 8
 
@@ -143,6 +181,29 @@ BENCH_SPLIT = 8
 # chunk after which the fourth rule is hot-added.
 RULEBOOK_SPARE = 1
 HOT_ADD_AT = 32
+
+# The single-stream adaptive loop at the paper's §5 setup
+# (benchmarks/common.py:32-74 and ::run_one, :108-153): the five pattern
+# sets at the widest size of benchmarks/fig69_methods.py:31, the traffic
+# dataset, both planners under the four decision policies, adaptive match
+# capacities in pow2 buckets between the bounds (escalation up to 4x the
+# upper one).
+ADAPT_SETS = ("seq", "conj", "neg", "kleene", "composite")
+ADAPT_SIZE = 8
+ADAPT_CHUNKS = 120
+ADAPT_POLICIES = {"static": {}, "unconditional": {},
+                  "threshold": dict(t=0.4), "invariant": dict(k=1, d=0.0)}
+ADAPT_B_CAP = 128
+ADAPT_M_CAP = 512
+ADAPT_CAP_BOUNDS = (256, 8192)
+RUN_FIELDS = ("chunks", "events", "full_matches", "pm_created", "overflow",
+              "closure_expansions", "replans", "deployments",
+              "false_positives", "migration_chunks", "condition_checks",
+              "regret_samples")
+# The adaptive oracle: each set at size 4 over 20 chunks.
+ORACLE_SIZE = 4
+ORACLE_CHUNKS = 20
+SCENARIO_CONFIGS = ("adaptive", "adaptive_s8", "static", "pinned")
 
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
@@ -159,6 +220,9 @@ SELECT_REPLACES = "src/repro/core/engine.py:167"
 PATH_KERNELS = {"order": ("window_join_packed", "window_join_rowcount",
                           SELECT),
                 "tree": ("window_join", "window_join_rowcount", SELECT)}
+# The kernels each planner's adaptive-loop runs must launch.
+ADAPT_KERNELS = {"greedy": PATH_KERNELS["order"],
+                 "zstream": PATH_KERNELS["tree"]}
 INT_FIELDS = ("chunks", "events", "matches", "replans", "deployments",
               "violations", "host_syncs", "overflow", "dropped",
               "neg_rejected", "closure_expansions", "escalations",
@@ -644,6 +708,67 @@ def check_per_batch_thresholds(device, c_packed, c_rowcount, batch):
           "thresholds equal (K, C)")
 
 
+def check_single_stream_kernels(device, c_packed, c_join):
+    """The kernels at the shapes of the single-stream adaptive loop (K = 1,
+    the §5 setup's b_cap): the packed join and the row count at the largest
+    bucket the cost model picks, the tree join and the survivor selection
+    at the escalation limit, each bit for bit against its plain version.
+    Returns per kernel the shape, the times, the bound and the error."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    m_top = ADAPT_CAP_BOUNDS[1]
+    m_esc = 4 * ADAPT_CAP_BOUNDS[1]
+    p_args = packed_inputs(gen, 1, c_packed, m_top, ADAPT_B_CAP, device)
+    r_args = rowcount_inputs(gen, 1, 6, m_top, ADAPT_B_CAP, device)
+    u_args = unpacked_inputs(gen, 1, c_join, m_esc, m_esc, device)
+    # the selection on the tree join's own output, then its timed input:
+    # about one survivor per row
+    joined = kops.window_join_bits(*u_args)
+    check_select(*joined, m_esc, (1, m_esc // 2, m_esc),
+                 "single-stream tree join output")
+    sparse = sparse_bits(gen, 1, m_esc, m_esc, m_esc, device)
+    check_select(*sparse, m_esc, (m_esc // 2, m_esc, 2 * m_esc),
+                 "single-stream, one survivor per row")
+    del joined
+    records = {}
+    for name, fn, args, bound, diff in (
+            ("window_join_packed", kops.window_join_packed_bits, p_args,
+             packed_bound, mask_err),
+            ("window_join_rowcount", kops.window_join_rowcount, r_args,
+             rowcount_bound, None),
+            ("window_join", kops.window_join_bits, u_args, join_bound,
+             mask_err),
+            (SELECT, kops.select_survivors, (*sparse, m_esc, m_esc),
+             select_bound, None)):
+        got = fn(*args)
+        want = fn(*args, backend="ref")
+        err = (diff(got, want) if diff else
+               float((got.to(torch.int64) - want.to(torch.int64))
+                     .abs().max()))
+        if err != 0:
+            raise AssertionError(f"{name} kernel != plain at the "
+                                 f"single-stream shape (max_abs_err {err})")
+        del got, want
+        ms = cuda_ms(lambda: fn(*args))
+        plain_ms = cuda_ms(lambda: fn(*args, backend="ref"), reps=3,
+                           inner=1)
+        bound_ms, bound_by = bound(*args)
+        shape = (tuple(args[0].shape[:2]) + args[2:] if name == SELECT
+                 else tuple(args[0].shape) + (args[1].shape[2],))
+        print(f"   single stream {name} "
+              f"{'(K, M, B, out_cap)' if name == SELECT else '(K, C, M, B)'}"
+              f"={shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err}")
+        records[name] = dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err)
+    return records
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -661,10 +786,11 @@ def path_config(plan, **kw):
 
 
 def run_main(device, backend=None, plan="order", superchunk=1,
-             sessions=None):
-    """The full-width path through ``cep.open(...).run``; returns the
-    telemetry, the wall seconds and the peak device memory (bytes), and
-    appends the session to ``sessions`` if given."""
+             sessions=None, n_chunks=CHUNKS_MAIN):
+    """The full-width path through ``cep.open(...).run`` over the first
+    ``n_chunks`` chunks; returns the telemetry, the wall seconds and the
+    peak device memory (bytes), and appends the session to ``sessions``
+    if given."""
     import torch
 
     from repro_torch import cep
@@ -676,7 +802,7 @@ def run_main(device, backend=None, plan="order", superchunk=1,
                     monitor=True, config=cfg)
     if sessions is not None:
         sessions.append(sess)
-    data = streams(K_MAIN, CHUNKS_MAIN, BASE_RATE, CHUNK_CAP)
+    data = streams(K_MAIN, n_chunks, BASE_RATE, CHUNK_CAP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -766,17 +892,23 @@ def check_superchunk(plan, want, want_rate):
           f"escalations "
           f"{tel.escalations}, replans {tel.replans}")
     # The plain versions through the same window, captured and replayed on
-    # the card like the kernels (their survivor selection is capture-safe).
+    # the card like the kernels (their survivor selection is capture-safe),
+    # over the stream's first WINDOW_REF_CHUNKS chunks, against the kernel
+    # window over the same chunks.
+    part, _, _ = run_main("cuda", plan=plan, superchunk=SUPERCHUNK,
+                          n_chunks=WINDOW_REF_CHUNKS)
     kops.reset_launch_counts()
     scan.reset_counts()
     ref_tel, ref_secs, _ = run_main("cuda", plan=plan, backend="ref",
-                                    superchunk=SUPERCHUNK)
+                                    superchunk=SUPERCHUNK,
+                                    n_chunks=WINDOW_REF_CHUNKS)
     check_plain_window(f"superchunk {plan}")
-    same_telemetry(ref_tel, tel, f"superchunk {plan}: plain window vs "
+    same_telemetry(ref_tel, part, f"superchunk {plan}: plain window vs "
                    "kernel window")
     print(f"   plain-version window rerun (backend='ref', S={SUPERCHUNK}) on "
-          f"the card: equal integer telemetry ({ref_secs:.3f} s, graph "
-          f"replays {scan.COUNTS['replays']})")
+          f"the card over the first {WINDOW_REF_CHUNKS} chunks: equal "
+          f"integer telemetry to the kernel window over them "
+          f"({ref_secs:.3f} s, graph replays {scan.COUNTS['replays']})")
     return launches
 
 
@@ -1041,6 +1173,455 @@ def check_rulebook_oracle():
           f"== oracle; replans {rb.telemetry().replans}")
 
 
+# ---------------------------------------------------------------------------
+# The single-stream adaptive loop (paper Algorithm 1) and the scenario suite
+# ---------------------------------------------------------------------------
+
+
+def build_pattern(set_name, size, window=4.0, theta=-0.3):
+    """The paper's five pattern sets (§5.1) by size, as
+    benchmarks/common.py::build_pattern builds them, from the port's
+    pattern constructors."""
+    from repro_torch.core.patterns import (PRED_LT, CompositePattern,
+                                           Predicate, and_pattern,
+                                           chain_predicates, kleene_pattern,
+                                           neg_pattern, seq_pattern)
+
+    ids = list(range(size))
+    preds = chain_predicates(ids, theta=theta)
+    if set_name == "seq":
+        return seq_pattern(ids, window, preds)
+    if set_name == "conj":
+        return and_pattern(ids, window, preds)
+    if set_name == "neg":
+        # negated event = extra type `size`, absence between pos 0 and 1
+        return neg_pattern(
+            ids, window, negated_type=size, negated_pos=1,
+            predicates=preds,
+            negated_predicates=(Predicate(size, 0, PRED_LT, 0, 0, 0.0),))
+    if set_name == "kleene":
+        return kleene_pattern(ids, window, kleene_pos=size // 2,
+                              predicates=preds)
+    if set_name == "composite":
+        # disjunction of three independent sequences of `size` events
+        return CompositePattern(tuple(
+            seq_pattern(list(range(b * size, (b + 1) * size)), window,
+                        chain_predicates(
+                            list(range(b * size, (b + 1) * size)),
+                            theta=theta))
+            for b in range(3)))
+    raise ValueError(set_name)
+
+
+def stream_types(set_name, size):
+    return {"neg": size + 1, "composite": 3 * size}.get(set_name, size)
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def adaptive_streams(set_name, size, n_chunks, take=None):
+    """The traffic stream(s) of one §5 run, one per branch (seed 3, then
+    3 + branch), truncated to the first ``take`` chunks if given (the same
+    stream, since the regime shifts follow ``n_chunks``)."""
+    import itertools
+
+    from repro_torch.data.cep_streams import StreamConfig, make_stream
+
+    cfg = StreamConfig(
+        n_types=stream_types(set_name, size), n_attrs=1, n_chunks=n_chunks,
+        chunk_cap=CHUNK_CAP, base_rate=15.0, seed=3,
+        # ~4 regime shifts per run regardless of run length
+        shift_every=max(n_chunks / 4.0, 10.0))
+    n_branches = 3 if set_name == "composite" else 1
+    return [itertools.islice(
+        make_stream("traffic", dataclasses.replace(cfg, seed=3 + b)), take)
+        for b in range(n_branches)]
+
+
+def adaptive_run(set_name, size, planner, policy, n_chunks=ADAPT_CHUNKS,
+                 device="cuda", backend=None, take=None):
+    """One run of benchmarks/common.py::run_one on the port: an
+    ``AdaptiveRunner`` per branch (``merge_metrics`` over the composite's
+    three); returns the metrics, the wall seconds (ending in a device
+    sync) and the match capacities the runs built engines for."""
+    from repro_torch.core import AdaptiveRunner, EngineConfig, make_policy
+    from repro_torch.core.adaptation import merge_metrics
+    from repro_torch.core.patterns import CompositePattern
+
+    pat = build_pattern(set_name, size)
+    branches = (pat.branches if isinstance(pat, CompositePattern)
+                else (pat,))
+    ecfg = EngineConfig(b_cap=ADAPT_B_CAP, m_cap=ADAPT_M_CAP, device=device,
+                        backend=backend)
+    streams_ = adaptive_streams(set_name, size, n_chunks, take)
+    ms, caps = [], set()
+    sync(device)
+    t = time.perf_counter()
+    for branch, stream in zip(branches, streams_):
+        runner = AdaptiveRunner(
+            branch, planner=planner,
+            policy=make_policy(policy, **ADAPT_POLICIES[policy]),
+            engine_cfg=ecfg, adaptive_caps=True, cap_bounds=ADAPT_CAP_BOUNDS)
+        ms.append(runner.run(stream))
+        caps |= set(runner._engines)
+    sync(device)
+    return merge_metrics(ms), time.perf_counter() - t, sorted(caps)
+
+
+def same_run_metrics(got, want, what):
+    for f in RUN_FIELDS:
+        if getattr(got, f) != getattr(want, f):
+            raise AssertionError(f"{what}: {f} {getattr(got, f)} != "
+                                 f"{getattr(want, f)}")
+
+
+def check_adaptive(planner, device="cuda", size=ADAPT_SIZE,
+                   n_chunks=ADAPT_CHUNKS):
+    """Every pattern set under the four policies with one planner, the
+    launch counters zeroed just before and read just after; gates: equal
+    matches across the policies of each set, no overflow left after
+    escalation, no false positive of the invariant policy at d=0, and the
+    plain-version rerun of (seq, invariant) with equal integer metrics.
+    Returns the launch counts."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    runs = {}
+    for set_name in ADAPT_SETS:
+        for policy in ADAPT_POLICIES:
+            m, wall, caps = adaptive_run(set_name, size, planner, policy,
+                                         n_chunks, device)
+            runs[set_name, policy] = m, wall
+            print(f"   {planner} {set_name}-{size} {policy}: {m.events} "
+                  f"events in {wall:.3f} s = {m.events / wall:.1f} events/s;"
+                  f" matches {m.full_matches}, pm_created {m.pm_created}, "
+                  f"replans {m.replans}, deployments {m.deployments}, "
+                  f"false positives {m.false_positives}, migration chunks "
+                  f"{m.migration_chunks}, caps {caps}, adaptation overhead "
+                  f"{m.adaptation_overhead:.4f}", flush=True)
+    launches = dict(kops.LAUNCHES)
+    if device == "cuda":
+        for name in ADAPT_KERNELS[planner]:
+            if launches[name] <= 0:
+                raise AssertionError(f"adaptive {planner} never launched "
+                                     f"{name}")
+    for set_name in ADAPT_SETS:
+        got = {p: runs[set_name, p][0] for p in ADAPT_POLICIES}
+        matches = [m.full_matches for m in got.values()]
+        if len(set(matches)) != 1:
+            raise AssertionError(f"{planner} {set_name}: matches depend on "
+                                 f"the policy: {matches}")
+        if any(m.overflow for m in got.values()):
+            raise AssertionError(f"{planner} {set_name}: overflow left "
+                                 "after escalation")
+        if got["invariant"].false_positives != 0:
+            raise AssertionError(f"{planner} {set_name}: invariant policy "
+                                 "at d=0 made a false positive")
+    print(f"   {planner}: matches equal across the four policies of each "
+          f"set, zero overflow, zero false positives at d=0; launches "
+          f"{launches}")
+
+    # the plain versions on the card, on (seq, invariant)
+    kops.reset_launch_counts()
+    ref, ref_wall, ref_caps = adaptive_run(
+        "seq", size, planner, "invariant", n_chunks, device, backend="ref")
+    if any(kops.LAUNCHES.values()):
+        raise AssertionError("adaptive backend='ref' launched a kernel")
+    same_run_metrics(ref, runs["seq", "invariant"][0],
+                     f"adaptive {planner}: kernels vs plain")
+    print(f"   plain-version rerun of seq-{size} invariant over "
+          f"{ref.chunks} chunks on the card: equal integer metrics "
+          f"({ref_wall:.3f} s, caps {ref_caps})")
+    return launches
+
+
+def check_adaptive_oracle(device="cuda", size=ORACLE_SIZE,
+                          n_chunks=ORACLE_CHUNKS):
+    """Each pattern set at a narrow size through the loop (invariant
+    policy, both planners) against the brute-force oracle on the same
+    stream(s)."""
+    from repro_torch.core.patterns import CompositePattern
+    from repro_torch.core.ref_engine import RefEngine
+
+    for set_name in ADAPT_SETS:
+        pat = build_pattern(set_name, size)
+        branches = (pat.branches if isinstance(pat, CompositePattern)
+                    else (pat,))
+        want = sum(RefEngine(b).run(s).full_matches for b, s in zip(
+            branches, adaptive_streams(set_name, size, n_chunks)))
+        got = []
+        for planner in ("greedy", "zstream"):
+            m, _, _ = adaptive_run(set_name, size, planner, "invariant",
+                                   n_chunks, device)
+            if m.full_matches != want or m.overflow:
+                raise AssertionError(
+                    f"adaptive oracle {planner} {set_name}-{size}: "
+                    f"{m.full_matches} matches (overflow {m.overflow}) vs "
+                    f"oracle {want}")
+            got.append(m.replans)
+        print(f"   {set_name}-{size} over {n_chunks} chunks: greedy and "
+              f"zstream matches == oracle {want} (replans {got})")
+
+
+def profile_adaptive(planner, n_chunks=16, top=8):
+    """The first chunks of one §5 run (seq, size 8, invariant policy)
+    under ``torch.profiler``: the single-stream loop's device-busy share
+    and its largest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        m, wall, _ = adaptive_run("seq", ADAPT_SIZE, planner, "invariant",
+                                  take=n_chunks)
+    print(f"   {planner}: D+A share of the run "
+          f"{m.adaptation_overhead:.4f}")
+    report_profile(prof, wall, n_chunks, f"adaptive {planner}", top,
+                   forbid_scans=False)
+
+
+def check_monitored_engine(device="cuda"):
+    """``MonitoredEngine`` (K = 1) on the stocks stream of
+    tests/test_monitor.py::test_monitored_single_stream_engine, order and
+    tree plans, replanning on each flag: the fused flag equals the host
+    float32 mirror of the lowered set every chunk (and the float64 host
+    policy but on an exact tie), and flags fire."""
+    import numpy as np
+
+    from repro_torch.core.compat import legacy_ok
+    from repro_torch.core.decision import InvariantPolicy
+    from repro_torch.core.engine import EngineConfig, MonitoredEngine
+    from repro_torch.core.greedy import greedy_order_plan
+    from repro_torch.core.invariants import check_lowered_np
+    from repro_torch.core.patterns import chain_predicates, seq_pattern
+    from repro_torch.core.stats import Stat, uniform_stat
+    from repro_torch.core.zstream import zstream_tree_plan
+    from repro_torch.data.cep_streams import StreamConfig, make_stream
+
+    pat = seq_pattern([0, 1, 2], 4.0, chain_predicates([0, 1, 2],
+                                                       theta=-0.3))
+    for kind, planner, caps in (("order", greedy_order_plan, ()),
+                                ("tree", zstream_tree_plan, (8, 16))):
+        with legacy_ok():
+            eng = MonitoredEngine(kind, pat, EngineConfig(
+                b_cap=64, m_cap=512, device=device))
+        state, mon = eng.init_state(), eng.init_monitor()
+        stat0 = uniform_stat(pat.n)
+        plan, dcs = planner(pat, stat0)
+        pol = InvariantPolicy(k=1, d=0.0)
+        pol.on_replan(plan, dcs, stat0)
+        low = pol.compile(pat.n, *caps)
+        caps = caps or (low.active.shape[0], low.scale.shape[-1])
+        fired = matches = 0
+        for rec in make_stream("stocks", StreamConfig(
+                n_types=3, n_chunks=15, chunk_cap=128, base_rate=8.0,
+                seed=3)):
+            state, mon, res, violated, drift, rates, sel = \
+                eng.process_chunk(state, mon, rec.chunk, eng.plan_row(plan),
+                                  low, rec.t0, rec.t1)
+            rates, sel = rates.cpu().numpy(), sel.cpu().numpy()
+            synced = Stat(rates.astype(np.float64), sel.astype(np.float64))
+            v_np, drift_np = check_lowered_np(low, rates, sel)
+            flag = bool(violated)
+            if flag != bool(v_np) or not (pol.should_reoptimize(synced)
+                                          == flag or abs(drift_np) < 1e-5):
+                raise AssertionError(f"monitored engine {kind}: flag "
+                                     f"{flag} vs host {bool(v_np)}")
+            matches += int(res.full_matches)
+            if flag:
+                fired += 1
+                plan, dcs = planner(pat, synced)
+                pol.on_replan(plan, dcs, synced)
+                low = pol.compile(pat.n, *caps)
+        if fired == 0:
+            raise AssertionError(f"monitored engine {kind}: no flag fired")
+        print(f"   {kind}: 15 chunks, flags == host mirror every chunk, "
+              f"{fired} flags fired and replanned, {matches} matches")
+
+
+def scenario_session(sc, config, device="cuda"):
+    """A fresh session for one runtime configuration of the replay
+    (benchmarks/replay_bench.py::_session): the monitored invariant
+    policy (per chunk, or 8-chunk windows), the pinned cold plan with
+    escalation ("static"), or without ("pinned")."""
+    from repro_torch import cep
+    from repro_torch.cep import RuntimeConfig
+
+    rt = dict(sc.runtime, device=device)
+    monitor, superchunk = False, 1
+    if config.startswith("adaptive"):
+        monitor = True
+        rt["escalate_on_overflow"] = True
+        superchunk = SUPERCHUNK if config == "adaptive_s8" else 1
+    else:
+        rt["policy"] = None
+        rt.pop("policy_kw", None)
+        rt["escalate_on_overflow"] = config != "pinned"
+    return cep.open(sc.pattern, partitions=sc.partitions, monitor=monitor,
+                    superchunk=superchunk, config=RuntimeConfig(**rt))
+
+
+def replay(sc, segs, config, device="cuda"):
+    """Segment by segment through one resumable session: per segment
+    (segment, wall seconds, telemetry)."""
+    sess = scenario_session(sc, config, device)
+    rows = []
+    for i, (seg, parts) in enumerate(segs):
+        sync(device)
+        t = time.perf_counter()
+        tel = sess.run(parts, resume=i > 0)
+        sync(device)
+        rows.append((seg, time.perf_counter() - t, tel))
+    return rows
+
+
+def window_peak(sc):
+    """The most events of one type inside one pattern window, over every
+    partition's stream: what the per-type ring buffers must hold for no
+    event of a live window to be overwritten."""
+    import numpy as np
+
+    w = sc.pattern.build().window
+    peak = 0
+    for p in range(sc.partitions):
+        recs = list(sc.stream(p))
+        ts = np.concatenate([r.chunk.ts[r.chunk.valid] for r in recs])
+        tid = np.concatenate([r.chunk.type_id[r.chunk.valid] for r in recs])
+        for t in np.unique(tid):
+            x = np.sort(ts[tid == t])
+            end = np.searchsorted(x, x + w, side="right")
+            peak = max(peak, int((end - np.arange(len(x))).max()))
+    return peak
+
+
+def check_scenario_oracle(sc, got, want, device="cuda"):
+    """The whole run's per-partition matches against the oracle's.  Equal
+    when the scenario's ring buffers hold a window of every type; when
+    they do not, a buffer overwrites live events (in the JAX package as
+    here), so the run may count fewer (never more), and a rerun with the
+    buffers raised to the next power of two above the window peak must
+    equal the oracle.  Returns what was checked, for the printout."""
+    from repro_torch import cep
+    from repro_torch.cep import RuntimeConfig
+
+    peak, b_cap = window_peak(sc), sc.runtime["buffer_capacity"]
+    if peak <= b_cap:
+        if got != want:
+            raise AssertionError(f"{sc.name}: per-partition matches {got} "
+                                 f"!= oracle {want}")
+        return f"matches {want} == oracle"
+    if any(g > w for g, w in zip(got, want)):
+        raise AssertionError(f"{sc.name}: matches {got} exceed the oracle's "
+                             f"{want}")
+    b = 1 << (peak - 1).bit_length()
+    rt = dict(sc.runtime, buffer_capacity=b, device=device,
+              match_capacity=max(b, sc.runtime["match_capacity"]))
+    tel = cep.open(sc.pattern, partitions=sc.partitions, monitor=True,
+                   config=RuntimeConfig(**rt)).run(sc.streams())
+    if tel.per_partition_matches.tolist() != want:
+        raise AssertionError(f"{sc.name}: buffer_capacity={b} matches "
+                             f"{tel.per_partition_matches.tolist()} != "
+                             f"oracle {want}")
+    return (f"matches {got} <= oracle {want} (a window holds up to {peak} "
+            f"events of one type, buffer_capacity={b_cap}); with "
+            f"buffer_capacity={b}: matches == oracle")
+
+
+def check_scenarios(device="cuda", names=None):
+    """Each bundled scenario at its own partitions over its full length,
+    under the four replay configurations, with the semantic gates of
+    benchmarks/replay_bench.py:146-167 (zero replans and violations on
+    the control segment, per chunk and in windows; adaptive and static
+    matches equal per segment; drift deployments at least the scenario's
+    expected minimum; the pinned baseline loses matches) and the whole
+    run against the oracle per partition; then the FlowSense rulebook's
+    control gate and oracle (tests/test_scenarios.py:126-152)."""
+    import numpy as np
+
+    from repro_torch.cep import RuntimeConfig, open_rulebook
+    from repro_torch.core.ref_engine import RefEngine
+    from repro_torch.data import scenarios
+    from repro_torch.data.scenarios import flowsense
+
+    for name in names or scenarios.names():
+        sc = scenarios.get(name)
+        segs = sc.segment_streams()
+        runs = {c: replay(sc, segs, c, device) for c in SCENARIO_CONFIGS}
+
+        def by_gate(config, gate):
+            return [r for r in runs[config] if r[0].gate == gate]
+
+        for config in ("adaptive", "adaptive_s8"):
+            for seg, _, t in by_gate(config, "control"):
+                if t.replans or t.violations:
+                    raise AssertionError(
+                        f"{name} {config} control segment {seg.name}: "
+                        f"replans {t.replans}, violations {t.violations}")
+        for (seg, _, ta), (_, _, ts) in zip(runs["adaptive"],
+                                            runs["static"]):
+            if ta.matches != ts.matches:
+                raise AssertionError(f"{name} {seg.name}: adaptive "
+                                     f"{ta.matches} != static {ts.matches}")
+        deployments = sum(t.deployments for _, _, t in
+                          by_gate("adaptive", "drift"))
+        want_dep = int(sc.expected.get("min_drift_deployments", 1))
+        if deployments < want_dep:
+            raise AssertionError(f"{name}: {deployments} drift deployments "
+                                 f"< {want_dep}")
+        m_static = sum(t.matches for _, _, t in by_gate("static", "drift"))
+        m_pinned = sum(t.matches for _, _, t in by_gate("pinned", "drift"))
+        if not m_pinned < m_static:
+            raise AssertionError(f"{name}: pinned {m_pinned} does not lose "
+                                 f"matches against static {m_static}")
+        got = sum(t.per_partition_matches for _, _, t in runs["adaptive"])
+        want = [RefEngine(sc.pattern.build()).run(sc.stream(p)).full_matches
+                for p in range(sc.partitions)]
+        oracle = check_scenario_oracle(sc, got.tolist(), want, device)
+        rates = ", ".join(
+            f"{seg.name} adaptive {ta.events / wa:.1f} vs static "
+            f"{ts.events / ws:.1f}"
+            for (seg, wa, ta), (_, ws, ts) in zip(
+                by_gate("adaptive", "drift"), by_gate("static", "drift")))
+        print(f"   {name} K={sc.partitions}, {sc.n_chunks} chunks, "
+              f"{sum(t.events for _, _, t in runs['adaptive'])} events: "
+              f"control silent (per chunk and S={SUPERCHUNK}), adaptive == "
+              f"static per segment, drift deployments {deployments} >= "
+              f"{want_dep}, pinned drift recall "
+              f"{m_pinned / max(1, m_static):.4f}, {oracle}; events/s per "
+              f"drift segment (host clock): {rates}",
+              flush=True)
+
+    sc = scenarios.get("flowsense")
+    rules = flowsense.rulebook_patterns()
+    k = sc.partitions
+    warm = sc.segments[0].n_chunks
+    chunks = [list(sc.stream(p, chunks=warm + 4)) for p in range(k)]
+    rb = open_rulebook(rules, partitions=k, monitor=True,
+                       config=RuntimeConfig(**sc.runtime, device=device,
+                                            escalate_on_overflow=True))
+    rb.run([c[:warm] for c in chunks])
+    control = rb.run([c[warm:] for c in chunks])
+    if control.replans != 0 or rb.telemetry().overflow != 0:
+        raise AssertionError(f"flowsense rulebook: control replans "
+                             f"{control.replans}, overflow "
+                             f"{rb.telemetry().overflow}")
+    for i, r in enumerate(rules):
+        want = np.array([RefEngine(r.build()).run(chunks[p]).full_matches
+                         for p in range(k)], np.int64)
+        if not np.array_equal(rb.match_counts[i], want):
+            raise AssertionError(f"flowsense rulebook rule {i}: "
+                                 f"{rb.match_counts[i]} != oracle {want}")
+    print(f"   flowsense 3-rule rulebook, K={k}: control segment silent, "
+          f"zero overflow, per-rule matches == oracle "
+          f"{rb.match_counts.tolist()}")
+
+
 def bench_run(path, superchunk, chunks, backend=None):
     """One bench run of a fresh K=16 session over the stacked ``chunks``:
     its first ``BENCH_SPLIT`` chunks (in which a window path captures its
@@ -1170,13 +1751,23 @@ def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
         run(chunks[warm:], bool(warm))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    report_profile(prof, wall, n_chunks,
+                   f"{plan} window" if superchunk > 1 else plan, top)
+
+
+def report_profile(prof, wall, n_chunks, what, top, forbid_scans=True):
+    """Prints a profiled stretch's device-busy share of the wall, the ops
+    with the most device self time and the join-family kernels named;
+    fails if a device-wide scan (an M*B-cell scan) shows up on a fleet
+    path (``forbid_scans``)."""
+    import torch
+
     # Device-side rows only (kernels, copies): the op-level rows repeat
     # their kernels' device time.
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    what = f"{plan} window" if superchunk > 1 else plan
     named = sorted(k for k in ("packed_kernel", "join_kernel",
                                "rowcount_kernel", "select_kernel")
                    if any(k in e.key for e in rows))
@@ -1193,11 +1784,18 @@ def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
           f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms "
           f"over {sum(e.count for e in copies)} calls")
     # The compaction reads the join's bit words: nothing scans M*B cells
-    # (the old running count took PyTorch's device-wide scan).
-    scans = [e.key for e in rows if "DeviceScan" in e.key]
-    if scans:
+    # (the old running count took PyTorch's device-wide scan).  With one
+    # partition (K = 1) PyTorch takes the same scan for every cumsum of a
+    # single row (the ingest's N events, the selection's M row counts), so
+    # a single-stream path reports its scans instead.
+    scans = [e for e in rows if "DeviceScan" in e.key]
+    if scans and forbid_scans:
         raise AssertionError(f"device-wide scans on the {what} path: "
-                             f"{scans}")
+                             f"{[e.key for e in scans]}")
+    if scans:
+        print(f"   DeviceScan kernels (one-row cumsums): "
+              f"{sum(e.self_device_time_total for e in scans) / 1e3:.2f} ms "
+              f"over {sum(e.count for e in scans)} calls")
 
 
 def check_oracle(device, plan="order"):
@@ -1274,6 +1872,12 @@ def main() -> int:
     # veto's six rows, K x (one rule + one spare slot) batch elements.
     check_per_batch_thresholds("cuda", packed_rule_row_count(3), 6,
                                K_MAIN * (1 + RULEBOOK_SPARE))
+    # The adaptive loop's widest order and tree steps: the size-8 seq
+    # pattern's packed rows, and its tree join's (2 validity + 2 window +
+    # 1 order + 2 per predicate).
+    seq8 = make_spec(build_pattern("seq", ADAPT_SIZE))
+    single = check_single_stream_kernels(
+        "cuda", packed_row_count(seq8), 2 + 2 + 1 + 2 * len(seq8.pred_pairs))
     done("kernels", t)
 
     launches, per_chunk = {}, {}
@@ -1317,12 +1921,34 @@ def main() -> int:
     profile_main("rulebook", top=8)
     done("rulebook profile", t)
 
+    for planner in ("greedy", "zstream"):
+        t = phase(f"adaptive loop, planner={planner}")
+        launches[f"adaptive-{planner}"] = check_adaptive(planner)
+        done(f"adaptive loop, planner={planner}", t)
+
+        t = phase(f"adaptive profile, planner={planner}")
+        profile_adaptive(planner)
+        done(f"adaptive profile, planner={planner}", t)
+
+    t = phase("adaptive oracle")
+    check_adaptive_oracle()
+    done("adaptive oracle", t)
+
+    t = phase("monitored engine")
+    check_monitored_engine()
+    done("monitored engine", t)
+
+    t = phase("scenarios")
+    check_scenarios()
+    done("scenarios", t)
+
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(
         name=SELECT, route="cuda", source=SOURCE, replaces=SELECT_REPLACES,
         launches=sum(n[SELECT] for n in launches.values()),
         launches_by_path={p: n[SELECT] for p, n in launches.items()},
-        library_ms=None, **records[SELECT])}))
+        library_ms=None, single_stream=single[SELECT],
+        **records[SELECT])}))
     # ``launches`` sums a kernel's launches over the paths' runs; the
     # split is in ``launches_by_path``.
     kernels = [dict(name=name, route="cuda", source=SOURCE,
@@ -1330,7 +1956,9 @@ def main() -> int:
                     launches=sum(n[name] for n in launches.values()),
                     launches_by_path={p: n[name]
                                       for p, n in launches.items()},
-                    library_ms=None, **records[name])
+                    library_ms=None, **records[name],
+                    **({"single_stream": single[name]} if name in single
+                       else {}))
                for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -122,7 +122,7 @@ class RuntimeConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: the device mesh comes in a later slice of the port "
-                "(Queue 1 item 9 of ROADMAP.md)")
+                "(Queue 1 item 5 of ROADMAP.md)")
         if self.backend not in (None, "ref", "cuda"):
             raise ValueError(f"unknown kernel backend {self.backend!r}")
         if self.policy not in (None, "static", "unconditional", "threshold",

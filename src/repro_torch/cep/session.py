@@ -47,6 +47,7 @@ from typing import Iterable, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..core.adaptation import make_planner
+from ..core.compat import legacy_ok
 from ..core.engine import Chunk
 from ..core.fleet import (FleetChunk, FleetMetrics, FleetRunner,
                           MonitoredFleetRunner, stack_chunks, stacked_streams)
@@ -256,14 +257,15 @@ class Session:
             max_escalations=cfg.max_escalations,
             seed=cfg.seed,
         )
-        if self.monitor:
-            return MonitoredFleetRunner(
-                self.pattern, self.k, max_inv=cfg.max_invariants,
-                max_terms=cfg.max_terms, superchunk=cfg.superchunk,
-                **common)
-        cfg.require_device_control(self.monitor)
-        return FleetRunner(self.pattern, self.k,
-                           sel_samples=cfg.sel_samples, **common)
+        with legacy_ok():
+            if self.monitor:
+                return MonitoredFleetRunner(
+                    self.pattern, self.k, max_inv=cfg.max_invariants,
+                    max_terms=cfg.max_terms, superchunk=cfg.superchunk,
+                    **common)
+            cfg.require_device_control(self.monitor)
+            return FleetRunner(self.pattern, self.k,
+                               sel_samples=cfg.sel_samples, **common)
 
     def run(self, stream: Stream, *, resume: bool = False) -> Telemetry:
         """Consume a chunk stream through the adaptive loop (Algorithm 1
@@ -300,21 +302,22 @@ class Session:
     def _ensure_serving(self) -> CEPFleetServingEngine:
         if self._serving is None:
             cfg = self.config
-            if self.monitor:
-                self._serving = MonitoredCEPFleetServingEngine(
-                    self.pattern, self.k, engine_cfg=cfg.engine(),
-                    kind=self.plan_kind, chunk_cap=cfg.chunk_capacity,
-                    planner=self.planner_name, policy_kw=cfg.policy_kw,
-                    monitor_buckets=cfg.estimator_buckets,
-                    max_inv=cfg.max_invariants, max_terms=cfg.max_terms,
-                    laplace=cfg.laplace, superchunk=cfg.superchunk)
-            else:
-                plan0, _ = make_planner(self.planner_name)(
-                    self.pattern, uniform_stat(self.pattern.n))
-                self._serving = CEPFleetServingEngine(
-                    self.pattern, self.k, plan0, cfg.engine(),
-                    self.plan_kind, cfg.chunk_capacity,
-                    laplace=cfg.laplace, superchunk=cfg.superchunk)
+            with legacy_ok():
+                if self.monitor:
+                    self._serving = MonitoredCEPFleetServingEngine(
+                        self.pattern, self.k, engine_cfg=cfg.engine(),
+                        kind=self.plan_kind, chunk_cap=cfg.chunk_capacity,
+                        planner=self.planner_name, policy_kw=cfg.policy_kw,
+                        monitor_buckets=cfg.estimator_buckets,
+                        max_inv=cfg.max_invariants, max_terms=cfg.max_terms,
+                        laplace=cfg.laplace, superchunk=cfg.superchunk)
+                else:
+                    plan0, _ = make_planner(self.planner_name)(
+                        self.pattern, uniform_stat(self.pattern.n))
+                    self._serving = CEPFleetServingEngine(
+                        self.pattern, self.k, plan0, cfg.engine(),
+                        self.plan_kind, cfg.chunk_capacity,
+                        laplace=cfg.laplace, superchunk=cfg.superchunk)
         return self._serving
 
     def step(self, chunk: Chunk, t0: float, t1: float) -> np.ndarray:

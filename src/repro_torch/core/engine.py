@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from .compat import warn_legacy
 from .patterns import PRED_GT, PRED_LT, PRED_NONE, Pattern
 from .plans import TreeNode, TreePlan
 
@@ -585,19 +586,27 @@ class _Engine:
     def init_state(self, k: int = 1) -> Buffers:
         return init_buffers(self.spec, self.cfg, k, self.device)
 
+    def single_stream(self, chunk: Chunk, t0, t1, born_lo, born_hi):
+        """One unbatched chunk as a K = 1 batch on the device, and its
+        clock ``(t0, t1, born_lo, born_hi)`` as (1,) f32 tensors from one
+        host-to-device copy."""
+        dev = self.device
+        chunk = Chunk(*(torch.as_tensor(np.asarray(x), device=dev)[None]
+                        for x in chunk))
+        clock = torch.as_tensor(
+            np.asarray([[t0], [t1], [born_lo], [born_hi]], np.float32),
+            device=dev)
+        return chunk, tuple(clock)
+
     def process_chunk(self, buffers: Buffers, chunk: Chunk, plan,
                       t0: float, t1: float, born_lo: float = NEG_INF,
                       born_hi: float = POS_INF):
         """Single-stream convenience (K = 1): unbatched chunk arrays, one
         plan; the buffers keep their leading K = 1 axis and the counters
         come back as (1,) tensors."""
-        dev = self.device
-        chunk = Chunk(*(torch.as_tensor(np.asarray(x), device=dev)[None]
-                        for x in chunk))
-        scalar = [torch.tensor([v], dtype=torch.float32, device=dev)
-                  for v in (t0, t1, born_lo, born_hi)]
+        chunk, clock = self.single_stream(chunk, t0, t1, born_lo, born_hi)
         return self.process(buffers, chunk,
-                            self.plan_operands(self.plan_row(plan)), *scalar)
+                            self.plan_operands(self.plan_row(plan)), *clock)
 
 
 class OrderEngine(_Engine):
@@ -777,6 +786,14 @@ def _make_engine(kind: str, pattern: Pattern,
     raise ValueError(f"unknown engine kind {kind!r}")
 
 
+def make_engine(kind: str, pattern: Pattern,
+                cfg: EngineConfig = EngineConfig()):
+    """Deprecated: the ``repro_torch.cep`` facade selects the plan family
+    via ``cep.open(..., plan="order"|"tree"|"auto")``."""
+    warn_legacy("make_engine")
+    return _make_engine(kind, pattern, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Device-resident monitoring: process + statistics + invariants in one step
 # ---------------------------------------------------------------------------
@@ -817,3 +834,60 @@ def make_monitored_process(process_fn, spec: _Spec, laplace: float = 1.0):
         return buffers, monitor, res, violated, drift, rates, sel
 
     return mprocess
+
+
+class MonitoredEngine:
+    """Single-stream engine with the monitored step built in.
+
+    The fleet executor (``fleet.FleetEngine``) runs the same fused step for
+    K partitions; this wrapper is the K = 1 building block used by
+    examples and tests.  Plans enter as rows (``plan_row``) and invariant
+    sets as ``LoweredInvariants`` (host numpy, moved to the engine's device
+    each call), so neither a replan nor an invariant redeployment changes
+    a shape.  The buffers and the statistics ring keep their leading
+    K = 1 axis; the counters, ``violated``, ``drift``, ``rates`` and
+    ``sel`` come back without it, as the reference's do.
+    """
+
+    def __init__(self, kind: str, pattern: Pattern,
+                 cfg: EngineConfig = EngineConfig(),
+                 monitor_buckets: int = 16, laplace: float = 1.0):
+        warn_legacy("MonitoredEngine")
+        self.base = _make_engine(kind, pattern, cfg)
+        self.kind = kind
+        self.pattern = pattern
+        self.cfg = cfg
+        self.device = self.base.device
+        self.monitor_buckets = monitor_buckets
+        self._step = make_monitored_process(self.base.process,
+                                            self.base.spec, laplace)
+
+    def init_state(self) -> Buffers:
+        return self.base.init_state()
+
+    def init_monitor(self):
+        from .stats import monitor_init
+
+        return monitor_init(self.pattern.n, self.monitor_buckets,
+                            self.device)
+
+    def plan_row(self, plan) -> np.ndarray:
+        return self.base.plan_row(plan)
+
+    def process_chunk(self, buffers, monitor, chunk, plan_row, lowered,
+                      t0: float, t1: float,
+                      born_lo: float = NEG_INF, born_hi: float = POS_INF):
+        """One fused chunk: joins, statistics ring, invariants.  Returns
+        ``(buffers, monitor, StepResult, violated, drift, rates, sel)``."""
+        from .invariants import LoweredInvariants
+
+        chunk, clock = self.base.single_stream(chunk, t0, t1, born_lo,
+                                               born_hi)
+        lowered = LoweredInvariants(*(
+            torch.as_tensor(np.asarray(x), device=self.device)[None]
+            for x in lowered))
+        buffers, monitor, res, violated, drift, rates, sel = self._step(
+            buffers, monitor, chunk, self.base.plan_operands(plan_row),
+            lowered, *clock)
+        return (buffers, monitor, StepResult(*(x[0] for x in res)),
+                violated[0], drift[0], rates[0], sel[0])

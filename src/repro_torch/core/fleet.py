@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .adaptation import make_planner
+from .compat import warn_legacy
 from .decision import DecisionPolicy, InvariantPolicy
 from .engine import (NEG_INF, POS_INF, Buffers, Chunk, EngineConfig,
                      StepResult, _make_engine, make_monitored_process)
@@ -367,6 +368,8 @@ class FleetRunner:
         max_escalations: int = 4,
         seed: int = 0,
     ):
+        if type(self) is FleetRunner:
+            warn_legacy("FleetRunner")
         self.pattern = pattern
         self.k = int(k)
         planner = planner or "greedy"
@@ -673,6 +676,7 @@ class MonitoredFleetRunner(FleetRunner):
                  escalate_on_overflow: bool = True,
                  max_escalations: int = 4, seed: int = 0,
                  superchunk: int = 1):
+        warn_legacy("MonitoredFleetRunner")
         policy_factory = policy_factory or (
             lambda: InvariantPolicy(k=1, d=0.0))
         super().__init__(pattern, k, planner=planner,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.adaptation import make_planner
+from ..core.compat import warn_legacy
 from ..core.decision import InvariantPolicy
 from ..core.engine import EngineConfig
 from ..core.fleet import (FleetEngine, prime_invariant_policies,
@@ -49,6 +50,8 @@ class CEPFleetServingEngine:
                  engine_cfg: EngineConfig = EngineConfig(),
                  kind: str = "order", chunk_cap: int = 512,
                  laplace: float = 1.0, superchunk: int = 1):
+        if type(self) is CEPFleetServingEngine:
+            warn_legacy("CEPFleetServingEngine")
         self.fleet = FleetEngine(kind, pattern, k, engine_cfg,
                                  monitor_laplace=laplace)
         self.k = k
@@ -195,6 +198,7 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
                  max_inv: Optional[int] = None,
                  max_terms: Optional[int] = None,
                  laplace: float = 1.0, superchunk: int = 1):
+        warn_legacy("MonitoredCEPFleetServingEngine")
         self.pattern = pattern
         self.planner = make_planner(planner)
         # The plan family must match the planner's output (an order vector

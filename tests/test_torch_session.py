@@ -303,6 +303,7 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.cep.dsl", "repro_torch.cep.rulebook",
         "repro_torch.cep.session",
         "repro_torch.core", "repro_torch.core.adaptation",
+        "repro_torch.core.compat",
         "repro_torch.core.convert", "repro_torch.core.decision",
         "repro_torch.core.engine", "repro_torch.core.fleet",
         "repro_torch.core.greedy", "repro_torch.core.invariants",
@@ -311,6 +312,10 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.ref_engine", "repro_torch.core.scan",
         "repro_torch.core.stats", "repro_torch.core.zstream",
         "repro_torch.data", "repro_torch.data.cep_streams",
+        "repro_torch.data.scenarios", "repro_torch.data.scenarios.base",
+        "repro_torch.data.scenarios.citibike",
+        "repro_torch.data.scenarios.flowsense",
+        "repro_torch.data.scenarios.fraud",
         "repro_torch.kernels", "repro_torch.kernels.ops",
         "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
         "repro_torch.serving", "repro_torch.serving.engine",
