@@ -76,7 +76,29 @@ Phases (each prints its seconds; any failure exits non-zero):
               events/s and peak memory of the per-chunk and window runs;
               then 16 chunks of the per-chunk rulebook under
               ``torch.profiler`` (as phase 6);
-12. adaptive loop — the paper's single-stream Algorithm 1
+12. trace memo — the process-wide memo of steps and windows
+              (``core/fleet.py::_shared_trace``): a second K=16 order
+              session and a second tree session with ``superchunk=8`` and
+              phase 8's config capture no graph, replay phase 8's graphs
+              (launches counted) and equal the per-chunk telemetry; two
+              serving sessions (the stream of phase 4 and one of seed
+              1000) run their ``step_superchunk`` windows in turns
+              through one shared window and equal their solo runs; a
+              second FlowSense rulebook with ``superchunk=8`` captures no
+              graph and equals phase 11's counters.  Prints the device
+              memory the memo holds once no session is open (before and
+              after ``clear_trace_memo()``), and per plan the first
+              window's seconds of a fresh session with a fresh memo and
+              on a memo hit, with the captures saved;
+13. mesh    — the ``cep`` device mesh at D = 1
+              (``distributed/sharding.py``): the order window and the
+              rulebook window with ``mesh=1`` and ``mesh="auto"`` equal
+              the unmeshed runs (each meshed session captures its own
+              graphs: meshed windows are never memoized), launches
+              counted; ``mesh=2`` raises ``ValueError`` on a one-GPU host
+              (``NotImplementedError`` on a larger one: D > 1 is not
+              ported);
+14. adaptive loop — the paper's single-stream Algorithm 1
               (``repro_torch.core.AdaptiveRunner``) at its §5 setup
               (benchmarks/common.py::run_one): the five pattern sets at
               size 8 (the composite's three branches merged with
@@ -91,12 +113,12 @@ Phases (each prints its seconds; any failure exits non-zero):
               replans, deployments, migration chunks, the capacities
               reached and the D+A share per run; then 16 chunks of one
               run under ``torch.profiler``;
-13. adaptive oracle — each set at size 4 over 20 chunks, both
+15. adaptive oracle — each set at size 4 over 20 chunks, both
               planners, against ``RefEngine``;
-14. monitored engine — ``MonitoredEngine`` (K = 1), order and tree
+16. monitored engine — ``MonitoredEngine`` (K = 1), order and tree
               plans, replanning on each flag: the fused flag equals the
               host mirror every chunk, and flags fire;
-15. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
+17. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
               at its own partitions over its 80 chunks, replayed per
               segment under the adaptive (per chunk and S=8), static and
               pinned configurations, with the semantic replay gates
@@ -115,22 +137,28 @@ a graph replay calls no wrapper, so the window paths also count
 ``GRAPH_LAUNCHES`` (the launches a capture recorded, once per replay), and
 each of their kernels must show graph launches.  A window path's
 ``launches_by_path`` entry is the sum of the two; the rulebook's are
-"rulebook" and "rulebook window", the adaptive loop's "adaptive-greedy"
-and "adaptive-zstream" (all runs of a planner).  A kernel's record also
+"rulebook" and "rulebook window", the memo phase's "trace memo-order",
+"-tree", "-interleave" (both sessions) and "-rulebook", the mesh
+phase's "mesh-order" and "mesh-rulebook" (both meshes), the adaptive
+loop's "adaptive-greedy" and "adaptive-zstream" (all runs of a
+planner).  A kernel's record also
 holds its ``single_stream`` shape, times and bound.
 
 The survivor selection's record is a JSON line of its own; the line
 before the last is the JSON ``kernels`` record of the four kernels that
 replace TPU kernels; the last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device the script exits with code 1 and prints no result.
+Without a CUDA device the script exits with code 1 and prints no result;
+alone, in a directory without the repository, it stops at its first
+import of the port (exit code 1).
 
 ``python3 chip_smoke.py --bench N`` (a measurement, not the check) runs
 only the device and build phases, then for the order and tree sessions
 and the serving plane N per-chunk and N window runs of the K=16 stream
 in turns (per-chunk, window, window, per-chunk, ...), each held to equal
-telemetry, and prints each run's events/s over all 64 chunks (graph
-captures included) and over the chunks after the first 8, with the
-medians and ranges.
+telemetry and each from an empty memo (so a window run captures its
+graphs in its first chunks), and prints each run's events/s over all 64
+chunks (graph captures included) and over the chunks after the first 8,
+with the medians and ranges.
 """
 
 from __future__ import annotations
@@ -786,18 +814,18 @@ def path_config(plan, **kw):
 
 
 def run_main(device, backend=None, plan="order", superchunk=1,
-             sessions=None, n_chunks=CHUNKS_MAIN):
+             sessions=None, n_chunks=CHUNKS_MAIN, mesh=None):
     """The full-width path through ``cep.open(...).run`` over the first
-    ``n_chunks`` chunks; returns the telemetry, the wall seconds and the
-    peak device memory (bytes), and appends the session to ``sessions``
-    if given."""
+    ``n_chunks`` chunks (K split over ``mesh`` if given); returns the
+    telemetry, the wall seconds and the peak device memory (bytes), and
+    appends the session to ``sessions`` if given."""
     import torch
 
     from repro_torch import cep
 
     cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
                       chunk_capacity=CHUNK_CAP, device=device,
-                      backend=backend, superchunk=superchunk)
+                      backend=backend, superchunk=superchunk, mesh=mesh)
     sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
     if sessions is not None:
@@ -1009,11 +1037,13 @@ def rulebook_counters(rb):
             for e in rb._rules]
 
 
-def run_rulebook(chunks, backend=None, superchunk=1, k=None, caps=None):
+def run_rulebook(chunks, backend=None, superchunk=1, k=None, caps=None,
+                 mesh=None):
     """The FlowSense rulebook through ``open_rulebook(...).run`` over the
     stacked ``chunks`` (K = ``k``, default K_MAIN; ``caps`` = (buffer,
-    match, chunk) capacities, default the main path's); returns the book,
-    the wall seconds and the peak device memory (bytes)."""
+    match, chunk) capacities, default the main path's; K split over
+    ``mesh`` if given); returns the book, the wall seconds and the peak
+    device memory (bytes)."""
     import torch
 
     from repro_torch.cep import RuntimeConfig, open_rulebook
@@ -1024,7 +1054,8 @@ def run_rulebook(chunks, backend=None, superchunk=1, k=None, caps=None):
                        config=RuntimeConfig(
                            buffer_capacity=b_cap, match_capacity=m_cap,
                            chunk_capacity=cap, device="cuda",
-                           backend=backend, superchunk=superchunk),
+                           backend=backend, superchunk=superchunk,
+                           mesh=mesh),
                        spare_slots=RULEBOOK_SPARE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1057,7 +1088,7 @@ def check_rulebook():
     """The FlowSense rulebook at full width: the per-chunk kernel run
     (launches counted), zero overflow, three solo sessions, the plain
     rerun, the superchunk window and a hot add; returns the launch counts
-    of the per-chunk and window runs."""
+    of the per-chunk and window runs, and the per-rule counters."""
     from repro_torch.core import scan
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import window_join
@@ -1146,7 +1177,7 @@ def check_rulebook():
           f"run): no kernel build, no graph capture (trace_count "
           f"{after[0]}, captures {after[1]}); equals its solo session "
           f"({int(total.sum())} matches); rules 0-2 undisturbed")
-    return launches, w_launches
+    return launches, w_launches, want
 
 
 def check_rulebook_oracle():
@@ -1171,6 +1202,231 @@ def check_rulebook_oracle():
             raise AssertionError(f"rulebook oracle neg_rejected, rule {rid}")
     print(f"   K={k} b_cap=64: per-rule matches {rb.match_counts.tolist()} "
           f"== oracle; replans {rb.telemetry().replans}")
+
+
+# ---------------------------------------------------------------------------
+# The process-wide memo of steps and windows, and the cep device mesh
+# ---------------------------------------------------------------------------
+
+
+def serving_session(superchunk=SUPERCHUNK):
+    """A monitored K=16 order session of the main path's config, for the
+    serving plane."""
+    from repro_torch import cep
+
+    return cep.open(flowsense_rule(), partitions=K_MAIN, plan="order",
+                    monitor=True,
+                    config=path_config("order", buffer_capacity=B_CAP,
+                                       match_capacity=M_CAP,
+                                       chunk_capacity=CHUNK_CAP,
+                                       device="cuda", superchunk=superchunk))
+
+
+def serving_window(sess, chunks, lo):
+    """One ``step_superchunk`` window of ``sess`` over chunks ``lo`` to
+    ``lo + SUPERCHUNK``: its per-chunk matches as a list."""
+    seg = chunks[lo:lo + SUPERCHUNK]
+    return sess.step_superchunk([fc.chunk for fc in seg],
+                                [(fc.t0, fc.t1) for fc in seg]).tolist()
+
+
+def first_window_seconds(plan, chunks):
+    """A fresh K=16 session of ``plan`` with ``superchunk=8`` over the
+    stream's first window: its wall seconds (ending in a device sync) and
+    its graph captures."""
+    import torch
+
+    from repro_torch import cep
+    from repro_torch.core import scan
+
+    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
+                    monitor=True,
+                    config=path_config(plan, buffer_capacity=B_CAP,
+                                       match_capacity=M_CAP,
+                                       chunk_capacity=CHUNK_CAP,
+                                       device="cuda", superchunk=SUPERCHUNK))
+    scan.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sess.run(chunks[:SUPERCHUNK])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, scan.COUNTS["captures"]
+
+
+def memory_line(what):
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc, res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    print(f"   {what}: allocated {alloc} bytes ({alloc / 2 ** 20:.3f} MiB), "
+          f"reserved {res} bytes ({res / 2 ** 20:.3f} MiB)")
+    return alloc
+
+
+def check_trace_memo(per_chunk, rulebook_want):
+    """The process-wide memo (``core/fleet.py::_shared_trace``): second
+    sessions of phase 8's config and a second rulebook of phase 11's
+    capture nothing and equal the first ones; two serving sessions'
+    windows in turns equal their solo runs; the memo's memory, and the
+    first window's seconds with a fresh memo and with a hit.  Returns the
+    launch counts per path."""
+    import numpy as np
+
+    from repro_torch.core import fleet, scan
+    from repro_torch.core.fleet import stacked_streams
+    from repro_torch.kernels import ops as kops
+
+    launches = {}
+    for plan in ("order", "tree"):
+        kops.reset_launch_counts()
+        scan.reset_counts()
+        box = []
+        tel, secs, _ = run_main("cuda", plan=plan, superchunk=SUPERCHUNK,
+                                sessions=box)
+        launches[f"trace memo-{plan}"] = window_launches(
+            f"trace memo {plan}", PATH_KERNELS[plan])
+        counts = dict(scan.COUNTS)
+        if counts["captures"] != 0 or counts["replays"] <= 0 or \
+                counts["eager_steps"] != 0:
+            raise AssertionError(f"second {plan} session: window counts "
+                                 f"{counts}")
+        same_telemetry(tel, per_chunk[plan][0], f"second {plan} session")
+        print(f"   second {plan} session (superchunk={SUPERCHUNK}, phase "
+              f"8's config): 0 graph captures, {counts['replays']} replays, "
+              f"equal integer telemetry to the per-chunk run (and so to "
+              f"phase 8); {tel.events / secs:.1f} events/s; memo entries "
+              f"{len(fleet._TRACE_MEMO)}")
+
+    # Two sessions' windows in turns, against their solo runs.
+    a_chunks, _ = serving_chunks()
+    b_chunks = list(stacked_streams(streams(K_MAIN, CHUNKS_MAIN, BASE_RATE,
+                                            CHUNK_CAP, seed=1000)))
+    starts = range(0, CHUNKS_MAIN, SUPERCHUNK)
+    solo = []
+    for c in (a_chunks, b_chunks):
+        sess = serving_session()
+        solo.append([serving_window(sess, c, lo) for lo in starts])
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    pair = [serving_session(), serving_session()]
+    turns = [[], []]
+    for lo in starts:
+        for j, c in enumerate((a_chunks, b_chunks)):
+            turns[j].append(serving_window(pair[j], c, lo))
+    launches["trace memo-interleave"] = window_launches(
+        "trace memo interleave", PATH_KERNELS["order"])
+    shared = (pair[0]._serving.fleet.superchunk_scan(True)
+              is pair[1]._serving.fleet.superchunk_scan(True))
+    if not shared or scan.COUNTS["captures"] != 0:
+        raise AssertionError(f"interleaved sessions: shared window {shared}, "
+                             f"captures {scan.COUNTS['captures']}")
+    if turns != solo or solo[0] == solo[1]:
+        raise AssertionError("interleaved windows differ from solo runs")
+    tels = [s.telemetry() for s in pair]
+    print(f"   two serving sessions (streams seed 0 and 1000) in turns, "
+          f"{len(starts)} windows each: equal per-chunk matches to their "
+          f"solo runs (matches {tels[0].matches} and {tels[1].matches}, "
+          f"violations {tels[0].violations} and {tels[1].violations}); one "
+          f"shared window, 0 captures")
+
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    rb, secs, _ = run_rulebook(a_chunks, superchunk=SUPERCHUNK)
+    launches["trace memo-rulebook"] = window_launches(
+        "trace memo rulebook", PATH_KERNELS["order"])
+    if scan.COUNTS["captures"] != 0 or rulebook_counters(rb) != rulebook_want:
+        raise AssertionError(f"second rulebook: captures "
+                             f"{scan.COUNTS['captures']}, counters equal "
+                             f"{rulebook_counters(rb) == rulebook_want}")
+    print(f"   second FlowSense rulebook (superchunk={SUPERCHUNK}): "
+          f"trace_count {rb.trace_count()} (the shared windows' shapes), 0 "
+          f"new captures, equal per-rule counters; "
+          f"{sum(int(np.asarray(fc.chunk.valid).sum()) for fc in a_chunks) / secs:.1f} "
+          f"events/s")
+    del rb, pair, sess, box
+
+    n_entries = len(fleet._TRACE_MEMO)
+    held = memory_line(f"device memory with the memo's {n_entries} entries "
+                       f"and no open session")
+    fleet.clear_trace_memo()
+    freed = memory_line("after clear_trace_memo()")
+    print(f"   the memo held {held - freed} bytes "
+          f"({(held - freed) / 2 ** 20:.3f} MiB) of device memory")
+
+    for plan in ("order", "tree"):
+        fresh, fresh_caps = first_window_seconds(plan, a_chunks)
+        hit, hit_caps = first_window_seconds(plan, a_chunks)
+        if fresh_caps <= 0 or hit_caps != 0:
+            raise AssertionError(f"{plan} first window: captures "
+                                 f"{fresh_caps} fresh, {hit_caps} on a hit")
+        print(f"   {plan} first window (a fresh session, {SUPERCHUNK} "
+              f"chunks): {fresh:.4f} s with a fresh memo ({fresh_caps} "
+              f"captures), {hit:.4f} s on a memo hit (0 captures): "
+              f"{fresh_caps} captures and {fresh - hit:.4f} s saved")
+    return launches
+
+
+def check_mesh(per_chunk, rulebook_want):
+    """The ``cep`` device mesh at D = 1: the order window and the
+    rulebook window with ``mesh=1`` and ``mesh="auto"`` equal the
+    unmeshed runs (meshed windows are never shared, so each captures its
+    own graphs); ``mesh=2`` raises on a one-GPU host.  Returns the launch
+    counts per path."""
+    import torch
+
+    from repro_torch import cep
+    from repro_torch.core import scan
+    from repro_torch.kernels import ops as kops
+
+    launches = {}
+    kops.reset_launch_counts()
+    for mesh in (1, "auto"):
+        scan.reset_counts()
+        box = []
+        tel, secs, _ = run_main("cuda", plan="order", superchunk=SUPERCHUNK,
+                                sessions=box, mesh=mesh)
+        d = box[0]._runner.fleet.mesh.shape["cep"]
+        same_telemetry(tel, per_chunk["order"][0], f"order mesh={mesh!r}")
+        if scan.COUNTS["captures"] <= 0 or scan.COUNTS["eager_steps"]:
+            raise AssertionError(f"mesh={mesh!r}: window counts "
+                                 f"{dict(scan.COUNTS)}")
+        print(f"   order window, mesh={mesh!r} (D={d}): equal integer "
+              f"telemetry to the unmeshed runs; {tel.events / secs:.1f} "
+              f"events/s, graph captures {scan.COUNTS['captures']}")
+    launches["mesh-order"] = window_launches("mesh order",
+                                             PATH_KERNELS["order"])
+    chunks, _ = serving_chunks()
+    kops.reset_launch_counts()
+    for mesh in (1, "auto"):
+        scan.reset_counts()
+        rb, secs, _ = run_rulebook(chunks, superchunk=SUPERCHUNK, mesh=mesh)
+        if rulebook_counters(rb) != rulebook_want or rb.mesh is None:
+            raise AssertionError(f"rulebook mesh={mesh!r}: counters differ")
+        print(f"   rulebook window, mesh={mesh!r}: equal per-rule counters; "
+              f"graph captures {scan.COUNTS['captures']}")
+    launches["mesh-rulebook"] = window_launches("mesh rulebook",
+                                                PATH_KERNELS["order"])
+    want = ValueError if torch.cuda.device_count() < 2 else \
+        NotImplementedError
+    for what, opener in (
+            ("cep.open", lambda: cep.open(
+                flowsense_rule(), partitions=K_MAIN, plan="order",
+                monitor=True, config=path_config("order", device="cuda"),
+                mesh=2)),
+            ("open_rulebook", lambda: cep.open_rulebook(
+                flowsense_rulebook(), partitions=K_MAIN,
+                config=path_config("order", device="cuda", mesh=2)))):
+        try:
+            opener()
+        except want as e:
+            print(f"   {what}(mesh=2) on {torch.cuda.device_count()} GPU(s) "
+                  f"raises {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"{what}(mesh=2) did not raise")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1670,7 +1926,7 @@ def bench(n_runs):
     import numpy as np
     import torch
 
-    from repro_torch.core import scan
+    from repro_torch.core import fleet, scan
 
     turns = ([1, SUPERCHUNK, SUPERCHUNK, 1] * n_runs)[:2 * n_runs]
     chunks, n_events = serving_chunks()
@@ -1681,6 +1937,9 @@ def bench(n_runs):
         peaks = {1: 0, SUPERCHUNK: 0}
         want = None  # the first run's telemetry and per-chunk matches
         for superchunk in turns:
+            # Each run opens a fresh memo, so a window run's first chunks
+            # hold its captures, as for a first session in a process.
+            fleet.clear_trace_memo()
             scan.reset_counts()
             torch.cuda.reset_peak_memory_stats()
             secs, got, tel, runner = bench_run(path, superchunk, chunks)
@@ -1910,7 +2169,8 @@ def main() -> int:
     done("serving", t)
 
     t = phase("rulebook")
-    launches["rulebook"], launches["rulebook window"] = check_rulebook()
+    launches["rulebook"], launches["rulebook window"], rulebook_want = \
+        check_rulebook()
     done("rulebook", t)
 
     t = phase("rulebook oracle")
@@ -1920,6 +2180,14 @@ def main() -> int:
     t = phase("rulebook profile")
     profile_main("rulebook", top=8)
     done("rulebook profile", t)
+
+    t = phase("trace memo")
+    launches.update(check_trace_memo(per_chunk, rulebook_want))
+    done("trace memo", t)
+
+    t = phase("mesh")
+    launches.update(check_mesh(per_chunk, rulebook_want))
+    done("mesh", t)
 
     for planner in ("greedy", "zstream"):
         t = phase(f"adaptive loop, planner={planner}")

@@ -10,9 +10,9 @@ adapters (``engine()``, ``policy_factory()``) that translate back to the
 internal structures.
 
 The port's copy adds ``device`` (default ``"cuda"``; asking for CUDA
-without a GPU raises when a session opens).  ``mesh`` raises
-``NotImplementedError``: the device mesh comes in a later slice of the
-port.
+without a GPU raises when a session opens).  ``mesh`` is resolved against
+``partitions`` and ``device`` when a session or rulebook opens
+(``distributed.sharding.resolve_cep_mesh``).
 """
 
 from __future__ import annotations
@@ -48,8 +48,14 @@ class RuntimeConfig:
                 the host syncs/replans only at window boundaries (or at an
                 invariant flag), with results bit-identical to per-chunk
                 stepping.  The batch plane needs ``monitor=True`` for it.
-    mesh:       sharding of the K-partition axis over devices; only None
-                in this slice of the port.
+    mesh:       shard the K-partition axis across devices — ``None`` (no
+                sharding), ``"auto"`` (every device of ``device``'s type),
+                an int device count, or a ``distributed.CepMesh`` with a
+                ``"cep"`` axis.  K must divide by the device count, and
+                the mesh must lie on ``device``; a D=1 mesh runs the
+                sharded code path on one device.  D > 1 raises
+                ``NotImplementedError`` until the multi-GPU split lands
+                (ROADMAP.md).
 
     Statistics
     ----------
@@ -119,10 +125,6 @@ class RuntimeConfig:
             raise ValueError("match_capacity must be >= buffer_capacity")
         if self.superchunk < 1:
             raise ValueError("superchunk must be >= 1")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: the device mesh comes in a later slice of the port "
-                "(Queue 1 item 5 of ROADMAP.md)")
         if self.backend not in (None, "ref", "cuda"):
             raise ValueError(f"unknown kernel backend {self.backend!r}")
         if self.policy not in (None, "static", "unconditional", "threshold",
@@ -139,9 +141,12 @@ class RuntimeConfig:
         ``Session`` calls this once at open time; keep any new front's
         checks here so error messages stay uniform.
         """
+        from ..distributed.sharding import resolve_cep_mesh
+
         if partitions < 1:
             raise ValueError("partitions must be >= 1")
         resolve_device(self.device)
+        resolve_cep_mesh(self.mesh, partitions, self.device)
         if monitor and self.policy != "invariant":
             raise ValueError(
                 "monitored runtimes verify invariants on device; "

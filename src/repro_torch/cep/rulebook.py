@@ -57,14 +57,15 @@ from ..core.engine import Chunk, EngineConfig, make_spec, resolve_device
 from ..core.fleet import stack_chunks
 from ..core.greedy import greedy_order_plan
 from ..core.invariants import LoweredInvariants, lower_invariants
-from ..core.multipattern import (BucketSpec, RuleOps, RulePlans,
-                                 RulebookPlane, ShareOps, build_rule_strips,
-                                 init_rule_buffers, init_rule_monitor,
-                                 lower_rule, pad_rule,
+from ..core.multipattern import (BucketSpec, RuleOps, RulePlans, ShareOps,
+                                 build_rule_strips, init_rule_buffers,
+                                 init_rule_monitor, lower_rule,
+                                 make_rulebook_plane, pad_rule,
                                  packed_rule_row_count, stack_rule_ops)
 from ..core.patterns import PRED_NONE, CompositePattern, Pattern
-from ..core.scan import (_upload, first_event, stack_rulebook_window,
-                         upload_rulebook_window)
+from ..core.scan import (_upload, first_event, make_rulebook_scan,
+                         stack_rulebook_window, upload_rulebook_window)
+from ..distributed.sharding import resolve_cep_mesh
 from ..core.stats import MonitorState, Stat, uniform_stat
 from .config import RuntimeConfig
 from .dsl import as_pattern
@@ -208,6 +209,7 @@ class _Bucket:
         self.policies: List[List] = []              # [k][q] -> policy
         self.caps: Tuple[int, int] = (1, 1)
         self.plane = None
+        self.scan_plane = None              # built on the first window
 
     # -- layout ------------------------------------------------------------
 
@@ -218,6 +220,24 @@ class _Bucket:
                      self.rb.device)
         self.share_d = ShareOps(rep=tuple(up[:d]), parent=tuple(up[d:2 * d]),
                                 expand=up[2 * d])
+
+    def _make_plane(self) -> None:
+        rb = self.rb
+        self.plane = make_rulebook_plane(
+            self.bspec, rb.engine_cfg, rb.k, rb.monitored,
+            laplace=rb.config.laplace, mesh=rb.mesh)
+
+    def scan_plane_ref(self):
+        """The bucket's window, built on the first superchunk window
+        (``core.scan.make_rulebook_scan``: memoized like the per-chunk
+        plane, keyed without capacity, so growth re-enters the same
+        window with a new shape)."""
+        if self.scan_plane is None:
+            rb = self.rb
+            self.scan_plane = make_rulebook_scan(
+                self.bspec, rb.engine_cfg, rb.k, rb.monitored,
+                laplace=rb.config.laplace, mesh=rb.mesh)
+        return self.scan_plane
 
     def _strip_cell(self, k: int, q: int) -> None:
         """Re-derive the join strips of cell (k, q) from its rule row and
@@ -330,8 +350,7 @@ class _Bucket:
         self._refresh_share()
         self.state = init_rule_buffers(self.bspec, rb.engine_cfg, rb.k,
                                        self.q_cap, dev)
-        self.plane = RulebookPlane(self.bspec, rb.engine_cfg, rb.monitored,
-                                   laplace=rb.config.laplace)
+        self._make_plane()
 
     def _probe_caps(self, patterns: Sequence[Pattern]) -> Tuple[int, int]:
         """Bucket-wide lowered-invariant caps from UNPINNED cold plans
@@ -480,6 +499,7 @@ class Rulebook:
         self.monitored = bool(monitor)
         self.engine_cfg: EngineConfig = self.config.engine()
         self.device = resolve_device(self.config.device)
+        self.mesh = resolve_cep_mesh(self.config.mesh, self.k, self.device)
         self.spare_slots = int(spare_slots)
         patterns = [self._check_pattern(as_pattern(r)) for r in rules]
         if not patterns:
@@ -742,7 +762,7 @@ class Rulebook:
         counters, ``out`` rows) and applies invariant replans for flags at
         the last accepted chunk; returns the number of chunks accepted
         (>= 1)."""
-        window = bucket.plane.window()
+        window = bucket.scan_plane_ref()
         low = bucket.lowered.device() if self.monitored else None
         state, monitor, ys = window(bucket.state, bucket.monitor,
                                     bucket.ops_d, bucket.share_d,
@@ -935,10 +955,15 @@ class Rulebook:
         return steps / max(nodes, 1)
 
     def trace_count(self) -> int:
-        """CUDA-graph captures of the buckets' superchunk windows — the
-        hot-add probe (a rule added into a free slot leaves it unchanged;
-        the per-chunk step runs eagerly and captures nothing)."""
-        return sum(b.plane.captures for b in self._buckets)
+        """Shape signatures the buckets' superchunk windows have entered,
+        one CUDA-graph capture each on the card — the hot-add probe (a
+        rule added into a free slot leaves it unchanged; growth adds one;
+        the per-chunk step runs eagerly and enters nothing).  Windows are
+        shared with equal-config rulebooks through the memo, so this
+        counts their shapes too, as the reference counts its shared
+        planes' traces."""
+        return sum(b.scan_plane.traces for b in self._buckets
+                   if b.scan_plane is not None)
 
     @property
     def n_buckets(self) -> int:
@@ -1003,7 +1028,8 @@ def open_rulebook(rules: Iterable, *, partitions: int = 1,
                  "cuda", places the plane); ``superchunk = S`` runs S
                  chunks per window (``run`` windows the stream,
                  ``step_superchunk`` takes explicit windows), ``sharing``
-                 and ``bucket_fusion`` tune the multi-query optimizer.
+                 and ``bucket_fusion`` tune the multi-query optimizer;
+                 the plane shards over ``config.mesh`` when set.
     spare_slots: pre-provisioned free rule/lattice-class slots per bucket
                  so that many hot-adds are pure row writes.
     """

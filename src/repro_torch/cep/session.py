@@ -256,6 +256,7 @@ class Session:
             escalate_on_overflow=cfg.escalate_on_overflow,
             max_escalations=cfg.max_escalations,
             seed=cfg.seed,
+            mesh=cfg.mesh,
         )
         with legacy_ok():
             if self.monitor:
@@ -310,14 +311,16 @@ class Session:
                         planner=self.planner_name, policy_kw=cfg.policy_kw,
                         monitor_buckets=cfg.estimator_buckets,
                         max_inv=cfg.max_invariants, max_terms=cfg.max_terms,
-                        laplace=cfg.laplace, superchunk=cfg.superchunk)
+                        laplace=cfg.laplace, superchunk=cfg.superchunk,
+                        mesh=cfg.mesh)
                 else:
                     plan0, _ = make_planner(self.planner_name)(
                         self.pattern, uniform_stat(self.pattern.n))
                     self._serving = CEPFleetServingEngine(
                         self.pattern, self.k, plan0, cfg.engine(),
                         self.plan_kind, cfg.chunk_capacity,
-                        laplace=cfg.laplace, superchunk=cfg.superchunk)
+                        laplace=cfg.laplace, superchunk=cfg.superchunk,
+                        mesh=cfg.mesh)
         return self._serving
 
     def step(self, chunk: Chunk, t0: float, t1: float) -> np.ndarray:
@@ -467,8 +470,10 @@ def open(pattern, *, partitions: int = 1, plan: str = "auto",
                 boundaries (or at an invariant flag), with detection,
                 flags and replan points bit-identical to per-chunk
                 stepping.
-    mesh:       convenience override of ``config.mesh``; anything but
-                None raises ``NotImplementedError`` in this slice.
+    mesh:       convenience override of ``config.mesh`` — shard the
+                K-partition axis over devices (``"auto"``, an int count,
+                or a ``distributed.CepMesh`` with a ``"cep"`` axis; one
+                device until the multi-GPU split lands, ROADMAP.md).
     """
     config = config or RuntimeConfig()
     overrides = {}

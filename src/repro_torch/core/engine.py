@@ -112,6 +112,17 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def canonical_device(name) -> torch.device:
+    """``name`` as a torch device with its index: a bare "cuda" is the
+    current CUDA device (device 0 where torch sees none), so "cuda" and
+    "cuda:0" name one device."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device()
+                           if torch.cuda.is_available() else 0)
+    return dev
+
+
 # ---------------------------------------------------------------------------
 # Shared join machinery
 # ---------------------------------------------------------------------------

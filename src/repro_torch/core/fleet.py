@@ -28,7 +28,11 @@ fires is accepted up to that chunk, as in the reference.
 Differential guarantee: every counter equals the JAX package's fleet and
 the brute-force oracle (``ref_engine``); see ``tests/test_torch_fleet.py``,
 ``tests/test_torch_session.py`` and ``tests/test_torch_superchunk.py``.
-The device mesh comes in a later slice.
+
+``FleetEngine(mesh=...)`` splits the K-partition axis over a ``cep``
+device mesh (``distributed.sharding``; D = 1 runs the sharded code path
+on one device).  Equal-config engines share their steps and windows
+through a process-wide memo (``_shared_trace``).
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ from .adaptation import make_planner
 from .compat import warn_legacy
 from .decision import DecisionPolicy, InvariantPolicy
 from .engine import (NEG_INF, POS_INF, Buffers, Chunk, EngineConfig,
-                     StepResult, _make_engine, make_monitored_process)
+                     StepResult, _make_engine, canonical_device,
+                     make_monitored_process)
 from .invariants import LoweredInvariants, StackedLowered
 from .patterns import Pattern
 from .plans import OrderPlan, TreePlan
@@ -133,6 +138,62 @@ def stacked_streams(streams: Sequence[Iterable]) -> Iterable[FleetChunk]:
 # ---------------------------------------------------------------------------
 
 
+# Process-wide memo of the fleet's and the rulebook's steps and windows.
+# FleetEngine instances are cheap and plentiful (escalation ladders,
+# replays, serving fronts, sessions per tenant), but instances with equal
+# (kind, pattern, k, cfg, monitor_laplace) run identical steps, and a
+# superchunk window holds the CUDA graphs captured for them (0.1-0.5 s
+# each on the card).  Sharing the window shares its captures: a second
+# equal-config session replays the first one's graphs and captures
+# nothing.  Meshed engines are excluded, as in the reference.
+#
+# A window's static tensors are shared too, which is safe because a
+# window copies its carry and inputs in when it starts and hands back
+# copies of its outputs before it returns; windows run one at a time.
+# The memo is not thread-safe (nor is its use in the reference, from one
+# host thread).  It is LRU-bounded: eviction drops the memo's reference,
+# an engine that holds the entry keeps working with it, and a new
+# equal-config engine builds (and on the card captures) again.  Neither
+# eviction nor ``clear_trace_memo`` runs inside a capture: ``build``
+# constructs a window, and windows capture when they first run.
+_TRACE_MEMO: "OrderedDict" = OrderedDict()
+_TRACE_MEMO_CAP = 64
+
+
+def _shared_trace(key, build):
+    if key is None:
+        return build()
+    fn = _TRACE_MEMO.get(key)
+    if fn is None:
+        fn = _TRACE_MEMO[key] = build()
+        while len(_TRACE_MEMO) > _TRACE_MEMO_CAP:
+            _TRACE_MEMO.popitem(last=False)
+    else:
+        _TRACE_MEMO.move_to_end(key)
+    return fn
+
+
+def clear_trace_memo() -> None:
+    """Drop every memoized fleet/rulebook step and window.
+
+    Existing engines keep working (they hold their own references); new
+    equal-config engines build and capture once more.  Releases the
+    memo's static tensors and graphs in long-lived processes, and gives
+    tests a clean slate.
+    """
+    _TRACE_MEMO.clear()
+
+
+def _memo_config(cfg: EngineConfig) -> EngineConfig:
+    """``cfg`` as a memo key: the device with its index ("cuda" and
+    "cuda:0" are one key) and the backend it resolves to (None is the
+    CUDA kernels on a CUDA device, the plain versions elsewhere)."""
+    dev = canonical_device(cfg.device)
+    return dataclasses.replace(
+        cfg, device=str(dev),
+        backend=cfg.backend or ("cuda" if dev.type == "cuda" else "ref"))
+
+
 class FleetEngine:
     """K partitions through one K-batched ``OrderEngine.process`` or
     ``TreeEngine.process``.
@@ -143,13 +204,17 @@ class FleetEngine:
     call; a plan matrix's device operands (an order matrix's strips, a tree
     matrix's slot program) are built once and cached while the matrix is
     deployed, so a deployed plan costs no host-to-device copy per chunk.
+    ``mesh`` (``distributed.sharding.resolve_cep_mesh``) splits K over
+    a ``cep`` device mesh.
     """
 
     _OPERANDS_CAP = 8
 
     def __init__(self, kind: str, pattern: Pattern, k: int,
                  cfg: EngineConfig = EngineConfig(),
-                 monitor_laplace: float = 1.0):
+                 monitor_laplace: float = 1.0, mesh=None):
+        from ..distributed.sharding import resolve_cep_mesh
+
         self.base = _make_engine(kind, pattern, cfg)
         self.kind = kind
         self.pattern = pattern
@@ -157,9 +222,27 @@ class FleetEngine:
         self.k = int(k)
         self.device = self.base.device
         self.monitor_laplace = monitor_laplace
-        self._mprocess = None
+        # Partitions are independent, so sharding never changes semantics.
+        self.mesh = resolve_cep_mesh(mesh, self.k, self.device)
+        self._process = _shared_trace(self._trace_key("plain"),
+                                      lambda: self._wrap(self.base.process))
+        self._mprocess = None  # monitored variant, built on first use
         self._operands: "OrderedDict[bytes, object]" = OrderedDict()
         self._scans = {}  # superchunk windows keyed by `monitored`
+
+    def _trace_key(self, flavor):
+        """Memo key for the process-wide memo; None = don't share."""
+        if self.mesh is not None:
+            return None
+        return (self.kind, self.pattern, self.k, _memo_config(self.cfg),
+                self.monitor_laplace, flavor)
+
+    def _wrap(self, fn):
+        """Shard the per-chunk step over the fleet mesh, if any."""
+        if self.mesh is None:
+            return fn
+        from ..distributed.sharding import shard_fleet_fn
+        return shard_fleet_fn(fn, self.mesh)
 
     # -- state -------------------------------------------------------------
 
@@ -223,7 +306,7 @@ class FleetEngine:
         scalars (shared clock) or per-partition ``(K,)`` vectors.  Returns
         the stacked state and a ``StepResult`` of ``(K,)`` counters.
         """
-        return self.base.process(
+        return self._process(
             state, self._chunk(chunks), self.plan_operands(plans),
             *self._clock(t0, t1, born_lo, born_hi))
 
@@ -240,21 +323,26 @@ class FleetEngine:
         host transfers stay proportional to violations, not to K.
         """
         if self._mprocess is None:
-            self._mprocess = make_monitored_process(
-                self.base.process, self.base.spec, self.monitor_laplace)
+            self._mprocess = _shared_trace(
+                self._trace_key("monitored"),
+                lambda: self._wrap(make_monitored_process(
+                    self.base.process, self.base.spec,
+                    self.monitor_laplace)))
         return self._mprocess(
             state, monitor, self._chunk(chunks), self.plan_operands(plans),
             lowered, *self._clock(t0, t1, born_lo, born_hi))
 
     def superchunk_scan(self, monitored: bool):
         """The S-chunks-per-window function (``core.scan``), one per
-        (engine, monitored).  Plans and invariants enter as data, so
-        replans never capture a new graph; an escalated fleet is another
-        engine and captures its own."""
+        (engine config, monitored), shared through the memo.  Plans and
+        invariants enter as data, so replans never capture a new graph;
+        an escalated fleet has another config and captures its own."""
         from .scan import SuperchunkWindow
 
         if monitored not in self._scans:
-            self._scans[monitored] = SuperchunkWindow(self, monitored)
+            self._scans[monitored] = _shared_trace(
+                self._trace_key(("scan", monitored)),
+                lambda: SuperchunkWindow(self, monitored))
         return self._scans[monitored]
 
 
@@ -367,6 +455,7 @@ class FleetRunner:
         escalate_on_overflow: bool = True,
         max_escalations: int = 4,
         seed: int = 0,
+        mesh=None,
     ):
         if type(self) is FleetRunner:
             warn_legacy("FleetRunner")
@@ -378,8 +467,9 @@ class FleetRunner:
         kind = "order" if planner == "greedy" else "tree"
         self.engine_cfg = engine_cfg
         self.laplace = float(laplace)
+        self.mesh = mesh
         self.fleet = FleetEngine(kind, pattern, k, engine_cfg,
-                                 monitor_laplace=laplace)
+                                 monitor_laplace=laplace, mesh=mesh)
         # Overflow escalation: a truncated join may have dropped matches,
         # so the chunk is re-evaluated with the next pow2 match-set
         # capacity (shared by the whole fleet).  Escalated engines persist.
@@ -438,7 +528,7 @@ class FleetRunner:
             self._fleets[cap] = FleetEngine(
                 self.fleet.kind, self.pattern, self.k,
                 dataclasses.replace(self.engine_cfg, m_cap=cap),
-                monitor_laplace=self.laplace)
+                monitor_laplace=self.laplace, mesh=self.mesh)
         return self._fleets[cap]
 
     def _deploy(self, p: int, new_plan, t0: float, m: FleetMetrics) -> None:
@@ -675,7 +765,7 @@ class MonitoredFleetRunner(FleetRunner):
                  laplace: float = 1.0,
                  escalate_on_overflow: bool = True,
                  max_escalations: int = 4, seed: int = 0,
-                 superchunk: int = 1):
+                 superchunk: int = 1, mesh=None):
         warn_legacy("MonitoredFleetRunner")
         policy_factory = policy_factory or (
             lambda: InvariantPolicy(k=1, d=0.0))
@@ -685,7 +775,8 @@ class MonitoredFleetRunner(FleetRunner):
                          estimator_buckets=estimator_buckets,
                          laplace=laplace,
                          escalate_on_overflow=escalate_on_overflow,
-                         max_escalations=max_escalations, seed=seed)
+                         max_escalations=max_escalations, seed=seed,
+                         mesh=mesh)
         for pol in self.policies:
             if not isinstance(pol, InvariantPolicy):
                 raise TypeError(

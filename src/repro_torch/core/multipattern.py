@@ -646,36 +646,52 @@ def _make_bucket_step(bspec: BucketSpec, cfg: EngineConfig,
 
 
 class RulebookPlane:
-    """One bucket's plane — the counterpart of the reference's
-    ``make_rulebook_plane`` — holding its step and, built on the first
-    superchunk window, the window that captures it
-    (``core.scan.RulebookWindow``).
-
-    The reference compiles the step under ``jit`` and memoizes it
-    process-wide; here each bucket holds its own plane, and the rule
-    capacity Qb is whatever the tensors it is given hold.  ``captures``
-    counts the window's CUDA-graph captures — the rulebook's
-    ``trace_count`` (the per-chunk step runs eagerly and captures
-    nothing).
+    """One bucket config's per-chunk plane, the value of
+    :func:`make_rulebook_plane`'s memo entry: ``step(state, monitor,
+    chunk, ops, share, plans, lowered, t0, t1)``, sharded over the mesh
+    when one is given.  The rule capacity Qb is whatever the tensors it is
+    given hold.  The step runs eagerly; the superchunk window that
+    captures it is ``core.scan.make_rulebook_scan``'s.
     """
 
     def __init__(self, bspec: BucketSpec, cfg: EngineConfig,
-                 monitored: bool, laplace: float = 1.0):
-        self.bspec = bspec
-        self.monitored = bool(monitored)
-        self.step = _make_bucket_step(bspec, cfg, monitored, laplace)
-        self._window = None
+                 monitored: bool, laplace: float = 1.0, mesh=None):
+        self.step = _shard_plane(
+            _make_bucket_step(bspec, cfg, monitored, laplace), mesh)
 
-    def window(self):
-        if self._window is None:
-            from .scan import RulebookWindow
 
-            self._window = RulebookWindow(self)
-        return self._window
+def make_rulebook_plane(bspec: BucketSpec, cfg: EngineConfig, k: int,
+                        monitored: bool, laplace: float = 1.0,
+                        mesh=None) -> RulebookPlane:
+    """The K x Qb plane of this bucket config, from the process-wide memo.
 
-    @property
-    def captures(self) -> int:
-        return 0 if self._window is None else self._window.captures
+    The memo key deliberately excludes the rule capacity Qb: a grown
+    bucket keeps its plane, and two rulebooks with equal config share
+    their planes.  Meshed planes are never shared, mirroring
+    ``FleetEngine``.
+    """
+    from .fleet import _memo_config, _shared_trace
+
+    key = (None if mesh is not None
+           else ("rulebook", bspec, _memo_config(cfg), int(k),
+                 bool(monitored), float(laplace)))
+    return _shared_trace(key, lambda: RulebookPlane(
+        bspec, cfg, monitored, laplace, mesh))
+
+
+def _shard_plane(fn, mesh):
+    """Shard the bucket step over a 1-D "cep" mesh: state, monitor, chunk,
+    plans and lowered lead with K; the rule rows, the lattice routing and
+    the clock are fleet-wide (replicated).  ``sharding.shard_fleet_fn``
+    K-leads every argument, which the rulebook signature violates, so the
+    specs are spelled per argument here."""
+    if mesh is None:
+        return fn
+    from ..distributed.sharding import fleet_pspec, shard_map
+
+    kl = fleet_pspec()
+    return shard_map(fn, mesh, (kl, kl, kl, None, None, kl, kl, None, None),
+                     kl)
 
 
 # ---------------------------------------------------------------------------

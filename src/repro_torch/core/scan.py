@@ -43,15 +43,23 @@ spares the re-run: on a drifting fleet most windows hold an event, and a
 re-run would replay up to S - 1 chunks each time.  Semantics are
 bit-identical to per-chunk stepping for every window size.
 
-The rulebook's window (``RulebookWindow``, the counterpart of the
-reference's ``make_rulebook_scan``) runs the same way: one bucket step
-per chunk (``core.multipattern``), its carry the bucket's (K, Qb) ring
-buffers and statistics rings, its constant inputs the rule rows, the
-lattice routing, the plan matrix and the lowered invariants.  Every
-chunk takes the one variant (the rulebook has no migration split), so a
-bucket captures once per shape signature: row writes (a rule added into
-a free slot, a removed rule, a replan) change no shape, bucket growth
-does.
+The rulebook's window (``RulebookWindow``, built through the memo by
+``make_rulebook_scan`` as in the reference) runs the same way: one
+bucket step per chunk (``core.multipattern``), its carry the bucket's
+(K, Qb) ring buffers and statistics rings, its constant inputs the rule
+rows, the lattice routing, the plan matrix and the lowered invariants.
+Every chunk takes the one variant (the rulebook has no migration split),
+so a bucket captures once per shape signature: row writes (a rule added
+into a free slot, a removed rule, a replan) change no shape, bucket
+growth does.
+
+Both windows are entries of the fleet's process-wide memo
+(``fleet._shared_trace``): equal-config sessions and rulebooks share one
+window, its static tensors and its graphs, so a second session captures
+nothing.  Sharing is safe because a window copies its carry and inputs
+into the statics when it starts, and copies every replay's outputs out
+of the graph pool before the next replay; windows run one at a time
+(from one host thread).
 
 Launch counts.  A graph replay makes no kernel-wrapper call, so
 ``kernels.window_join.LAUNCHES`` does not move under replay; the launches
@@ -61,6 +69,7 @@ a capture records are added to ``GRAPH_LAUNCHES`` once per replay
 
 from __future__ import annotations
 
+import functools
 import gc
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -386,8 +395,8 @@ class _Statics(NamedTuple):
 
     carry: _Carry
     chunk: Chunk
-    t0: torch.Tensor       # (K,) f32
-    t1: torch.Tensor       # (K,) f32
+    t0: torch.Tensor       # () f32 shared chunk clock
+    t1: torch.Tensor       # () f32
     born_lo: torch.Tensor  # (K,) f32
     migrating: torch.Tensor  # (K,) bool
     old_sel: torch.Tensor  # (K,) bool
@@ -397,8 +406,8 @@ class _Statics(NamedTuple):
 
 
 class SuperchunkWindow:
-    """The window function of one ``FleetEngine``, monitored or plain:
-    ``window(buffers, monitor, cur_rows, old_rows, lowered, xs) ->
+    """The window function of one ``FleetEngine`` config, monitored or
+    plain: ``window(buffers, monitor, cur_rows, old_rows, lowered, xs) ->
     (buffers, monitor, SuperchunkOut)``, the counterpart of the
     reference's compiled ``make_superchunk_scan``.
 
@@ -408,12 +417,18 @@ class SuperchunkWindow:
     ``s``.
     ``cur_rows``/``old_rows`` are the (K, ...) plan row matrices (host
     numpy), ``lowered`` the stacked device invariant rows (monitored
-    windows; None otherwise).  Captured graphs are cached per instance,
-    keyed by variant (pass A, pass A + B) and by the shapes of the static
-    tensors.
+    windows; None otherwise).  Static tensors and captured graphs are
+    tables inside the window, keyed by the shapes of the static tensors
+    (and graphs also by variant: pass A, pass A + B), so an equal-config
+    engine that shares the window through the fleet's memo replays its
+    graphs.  A meshed fleet's window runs its per-chunk body through
+    ``distributed.sharding.shard_fleet_scan``: the blocks' steps are
+    captured in the one graph of each shape.
     """
 
     def __init__(self, fleet, monitored: bool):
+        from ..distributed.sharding import shard_fleet_scan
+
         self.fleet = fleet
         self.monitored = bool(monitored)
         base = fleet.base
@@ -421,53 +436,69 @@ class SuperchunkWindow:
         self._mprocess = (make_monitored_process(
             base.process, base.spec, fleet.monitor_laplace)
             if monitored else None)
+        self._bodies = {}
+        for with_b in (False, True):
+            body = functools.partial(self._body, with_b)
+            self._bodies[with_b] = (body if fleet.mesh is None
+                                    else shard_fleet_scan(body, fleet.mesh))
         self._statics: Dict[tuple, _Statics] = {}
         self._graphs: Dict[tuple, tuple] = {}
 
     # -- the step ------------------------------------------------------------
 
-    def _step(self, st: _Statics, with_b: bool):
-        """One chunk from the static inputs: pass A (monitored or plain),
-        pass B where ``with_b``; writes the carry into ``st`` and returns
-        ``(head (7, K) i32, rates (K, n), sel (K, n, n))``."""
-        k, n = self.fleet.k, self.fleet.pattern.n
-        dev = st.t0.device
-        carry = st.carry
+    def _body(self, with_b: bool, buffers, monitor, cur_ops, old_ops,
+              lowered, x: SuperchunkXs):
+        """One chunk ``x`` (a row of ``SuperchunkXs``): pass A (monitored
+        or plain), pass B where ``with_b``.  Returns ``(buffers, monitor,
+        (out (K, 7) i32, rates (K, n), sel (K, n, n)))``, every output
+        leading with this block's partitions."""
+        k, n = x.born_lo.shape[0], self.fleet.pattern.n
+        dev = x.born_lo.device
+        t0, t1 = x.t0.expand(k), x.t1.expand(k)
         pos_v = torch.full((k,), POS_INF, dtype=torch.float32, device=dev)
         if self.monitored:
             buffers, monitor, res, violated, drift, rates, sel = \
-                self._mprocess(carry.buffers, carry.monitor, st.chunk,
-                               st.cur_ops, st.lowered, st.t0, st.t1,
-                               st.born_lo, pos_v)
+                self._mprocess(buffers, monitor, x.chunk, cur_ops, lowered,
+                               t0, t1, x.born_lo, pos_v)
         else:
-            buffers, res = self._process(carry.buffers, st.chunk,
-                                         st.cur_ops, st.t0, st.t1,
-                                         st.born_lo, pos_v)
-            monitor = None
+            buffers, res = self._process(buffers, x.chunk, cur_ops, t0, t1,
+                                         x.born_lo, pos_v)
             violated = torch.zeros((k,), dtype=torch.bool, device=dev)
             drift = torch.full((k,), NEG_INF, dtype=torch.float32,
                                device=dev)
             rates = torch.zeros((k, n), dtype=torch.float32, device=dev)
             sel = torch.zeros((k, n, n), dtype=torch.float32, device=dev)
-        counters = torch.stack([c.to(torch.int32) for c in res])
+        counters = torch.stack([c.to(torch.int32) for c in res], dim=1)
         if with_b:
             # Pass B: old plans over an empty chunk pick up matches born
             # before each partition's replan; non-migrating partitions are
             # masked out of the counters.
-            empty = st.chunk._replace(valid=torch.zeros_like(st.chunk.valid))
-            old_eff = _blend(st.old_sel, st.cur_ops, st.old_ops)
+            empty = x.chunk._replace(valid=torch.zeros_like(x.chunk.valid))
+            old_eff = _blend(x.old_sel, cur_ops, old_ops)
             neg_v = torch.full((k,), NEG_INF, dtype=torch.float32,
                                device=dev)
-            buffers, res_b = self._process(buffers, empty, old_eff, st.t0,
-                                           st.t1, neg_v, st.born_lo)
-            extra = torch.stack([c.to(torch.int32) for c in res_b])
-            counters = counters + torch.where(st.migrating[None], extra, 0)
+            buffers, res_b = self._process(buffers, empty, old_eff, t0, t1,
+                                           neg_v, x.born_lo)
+            extra = torch.stack([c.to(torch.int32) for c in res_b], dim=1)
+            counters = counters + torch.where(x.migrating[:, None], extra, 0)
+        out = torch.cat([counters, violated.to(torch.int32)[:, None],
+                         drift.to(torch.float32).view(torch.int32)[:, None]],
+                        dim=1)
+        return buffers, monitor, (out, rates, sel)
+
+    def _step(self, st: _Statics, with_b: bool):
+        """One chunk from the static inputs; writes the carry into ``st``
+        and returns ``(head (7, K) i32, rates (K, n), sel (K, n, n))``."""
+        carry = st.carry
+        x = SuperchunkXs(st.chunk, st.t0, st.t1, None, st.born_lo,
+                         st.migrating, st.old_sel)
+        buffers, monitor, (out, rates, sel) = self._bodies[with_b](
+            carry.buffers, carry.monitor, st.cur_ops, st.old_ops, st.lowered,
+            x)
         _copy_into(carry.buffers, buffers)
         if monitor is not None:
             _copy_into(carry.monitor, monitor)
-        head = torch.cat([counters, violated.to(torch.int32)[None],
-                          drift.to(torch.float32).view(torch.int32)[None]])
-        return head, rates, sel
+        return out.T, rates, sel
 
     # -- statics and graphs --------------------------------------------------
 
@@ -486,8 +517,8 @@ class SuperchunkWindow:
             st = self._statics[key] = _Statics(
                 carry=_Carry(buffers, monitor if self.monitored else None),
                 chunk=Chunk(*(c[0].clone() for c in chunk)),
-                t0=torch.zeros((k,), **f32),
-                t1=torch.ones((k,), **f32),
+                t0=torch.zeros((), **f32),
+                t1=torch.ones((), **f32),
                 born_lo=torch.full((k,), NEG_INF, **f32),
                 migrating=torch.zeros((k,), dtype=torch.bool, device=dev),
                 old_sel=torch.zeros((k,), dtype=torch.bool, device=dev),
@@ -544,8 +575,8 @@ class SuperchunkWindow:
                             device=dev)
         for s in range(n_run):
             _copy_into(st.chunk, Chunk(*(c[s] for c in chunk)))
-            st.t0.copy_(t0[s].expand(k))
-            st.t1.copy_(t1[s].expand(k))
+            st.t0.copy_(t0[s])
+            st.t1.copy_(t1[s])
             st.born_lo.copy_(born_lo[s])
             st.migrating.copy_(migrating[s])
             st.old_sel.copy_(old_sel[s])
@@ -634,47 +665,66 @@ class _RulebookStatics(NamedTuple):
 
 
 class RulebookWindow:
-    """The window function of one rulebook bucket plane
-    (``multipattern.RulebookPlane``): ``window(state, monitor, ops, share,
-    plans, lowered, xs) -> (state, monitor, RulebookOut)``, the
-    counterpart of the reference's compiled ``make_rulebook_scan``.
+    """The window function of one rulebook bucket config: ``window(state,
+    monitor, ops, share, plans, lowered, xs) -> (state, monitor,
+    RulebookOut)``, the counterpart of the reference's scanned plane
+    (``make_rulebook_scan``, which builds it through the memo).
 
     ``state``/``monitor`` are the pre-window carry (copied into the static
     carry, never written); ``ops``/``share``/``plans``/``lowered`` the
     bucket's device tensors, window-constant; ``xs`` an uploaded
     ``RulebookXs``.  The returned carry is the one after the last enabled
     chunk; ``ys.carry_after(s)`` gives the one after chunk ``s`` (the
-    reference re-runs the window's prefix instead).  On CUDA the step is
-    captured once per static shape signature — a hot-added rule in a free
-    slot changes no shape, bucket growth does — and replayed per chunk;
-    on the CPU it runs eagerly.  ``captures`` counts this window's
-    captures.
+    reference re-runs the window's prefix instead).  Static tensors and
+    graphs are per-shape tables: on CUDA the step is captured once per
+    shape signature — a hot-added rule in a free slot changes no shape,
+    bucket growth does — and replayed per chunk; on the CPU it runs
+    eagerly.  ``traces`` counts the shape signatures entered (one capture
+    each on the card), the counterpart of the reference plane's retrace
+    counter.  A meshed window runs its per-chunk body through
+    ``_shard_rulebook_scan``.
     """
 
-    def __init__(self, plane):
-        self.plane = plane
-        self.captures = 0
+    def __init__(self, bspec, cfg, monitored: bool, laplace: float = 1.0,
+                 mesh=None):
+        from .multipattern import _make_bucket_step
+
+        self.bspec = bspec
+        self.monitored = bool(monitored)
+        self.traces = 0
+        self._bucket_step = _make_bucket_step(bspec, cfg, monitored, laplace)
+        self._body = _shard_rulebook_scan(self._chunk_body, mesh)
         self._statics: Dict[tuple, _RulebookStatics] = {}
         self._graphs: Dict[tuple, tuple] = {}
+
+    def _chunk_body(self, state, monitor, ops, share, plans, lowered,
+                    x: RulebookXs):
+        """One chunk ``x`` (a row of ``RulebookXs``) through the bucket
+        step; returns ``(state, monitor, (out (K, 7, Qb) i32, rates,
+        sel))``, every output leading with this block's partitions."""
+        state, monitor, res, violated, drift, rates, sel = self._bucket_step(
+            state, monitor, x.chunk, ops, share, plans, lowered, x.t0, x.t1)
+        out = torch.stack([c.to(torch.int32) for c in res]
+                          + [violated.to(torch.int32),
+                             drift.to(torch.float32).view(torch.int32)],
+                          dim=1)
+        return state, monitor, (out, rates, sel)
 
     def _step(self, st: _RulebookStatics):
         """One chunk from the static inputs; writes the carry into ``st``
         and returns ``(head (7, K, Qb) i32, rates, sel)``."""
         carry = st.carry
-        buffers, monitor, res, violated, drift, rates, sel = self.plane.step(
-            carry.buffers, carry.monitor, st.chunk, st.ops, st.share,
-            st.plans, st.lowered, st.t0, st.t1)
-        _copy_into(carry.buffers, buffers)
+        state, monitor, (out, rates, sel) = self._body(
+            carry.buffers, carry.monitor, st.ops, st.share, st.plans,
+            st.lowered, RulebookXs(st.chunk, st.t0, st.t1, None))
+        _copy_into(carry.buffers, state)
         if monitor is not None:
             _copy_into(carry.monitor, monitor)
-        head = torch.cat([torch.stack(tuple(res)),
-                          violated.to(torch.int32)[None],
-                          drift.to(torch.float32).view(torch.int32)[None]])
-        return head, rates, sel
+        return out.transpose(0, 1), rates, sel
 
     def __call__(self, state, monitor, ops, share, plans, lowered,
                  xs: RulebookXs):
-        monitored = self.plane.monitored
+        monitored = self.monitored
         enabled = np.asarray(xs.enabled)
         n_run = int(enabled.sum())
         if n_run == 0 or not enabled[:n_run].all():
@@ -687,6 +737,7 @@ class RulebookWindow:
             + ((monitor,) if monitored else ())))
         st = self._statics.get(key)
         if st is None:
+            self.traces += 1
             st = self._statics[key] = _RulebookStatics(
                 carry=_Carry(state, monitor if monitored else None),
                 chunk=Chunk(*(c[0].clone() for c in xs.chunk)),
@@ -701,7 +752,6 @@ class RulebookWindow:
             if graph is None:
                 graph = self._graphs[key] = _capture(
                     dev, lambda: self._step(st))
-                self.captures += 1
         # The window's carry and constant inputs: device copies.
         carry = st.carry
         _copy_into(carry.buffers, state)
@@ -714,7 +764,7 @@ class RulebookWindow:
 
         s_len = len(enabled)
         k, qb = state.ptr.shape[:2]
-        n = self.plane.bspec.n
+        n = self.bspec.n
         head = torch.zeros((s_len, 7, k, qb), dtype=torch.int32, device=dev)
         head[:, 6] = _NEG_INF_BITS
         rates = torch.zeros((s_len, k, qb, n), dtype=torch.float32,
@@ -742,3 +792,36 @@ class RulebookWindow:
         COUNTS["windows"] += 1
         ys = RulebookOut(head, rates, sel, snaps, carry)
         return (*ys.carry_after(n_run - 1), ys)
+
+
+def make_rulebook_scan(bspec, cfg, k: int, monitored: bool,
+                       laplace: float = 1.0, mesh=None) -> RulebookWindow:
+    """The bucket window of this config, from the process-wide memo.
+
+    Like the per-chunk plane (``multipattern.make_rulebook_plane``) the
+    key leaves out every capacity (Qb, lattice class counts, S): growing a
+    bucket under superchunk re-enters the SAME window with a new shape —
+    one capture, no new memo entry — and equal-config rulebooks share its
+    captures.  Meshed windows are never shared.
+    """
+    from .fleet import _memo_config, _shared_trace
+
+    key = (None if mesh is not None
+           else ("rulebook-scan", bspec, _memo_config(cfg), int(k),
+                 bool(monitored), float(laplace)))
+    return _shared_trace(key, lambda: RulebookWindow(
+        bspec, cfg, monitored, laplace, mesh))
+
+
+def _shard_rulebook_scan(fn, mesh):
+    """Shard the rulebook window's per-chunk body over the 1-D "cep" mesh:
+    state, monitor, plans and lowered lead with K, ops/share are
+    fleet-wide (replicated), and ``x``'s chunk leads with K while its
+    clock and gate are replicated.  Partitions stay independent."""
+    if mesh is None:
+        return fn
+    from ..distributed.sharding import fleet_pspec, shard_map
+
+    kl = fleet_pspec()
+    x_spec = RulebookXs(chunk=kl, t0=None, t1=None, enabled=None)
+    return shard_map(fn, mesh, (kl, kl, None, None, kl, kl, x_spec), kl)

@@ -17,7 +17,8 @@ batch — host work is O(violations), not O(K·stats).
 ``process_superchunk`` runs S chunks per window (``core.scan``): on the
 card one captured CUDA graph replay per chunk and one readback per window;
 the monitored front cuts a window at a mid-window flag, so it equals
-looping ``process_chunk``.
+looping ``process_chunk``.  Both fronts take ``mesh=`` (the fleet's
+``cep`` device mesh).
 """
 
 from __future__ import annotations
@@ -49,11 +50,11 @@ class CEPFleetServingEngine:
     def __init__(self, pattern: Pattern, k: int, plans,
                  engine_cfg: EngineConfig = EngineConfig(),
                  kind: str = "order", chunk_cap: int = 512,
-                 laplace: float = 1.0, superchunk: int = 1):
+                 laplace: float = 1.0, superchunk: int = 1, mesh=None):
         if type(self) is CEPFleetServingEngine:
             warn_legacy("CEPFleetServingEngine")
         self.fleet = FleetEngine(kind, pattern, k, engine_cfg,
-                                 monitor_laplace=laplace)
+                                 monitor_laplace=laplace, mesh=mesh)
         self.k = k
         self.chunk_cap = chunk_cap
         if superchunk < 1:
@@ -197,7 +198,7 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
                  monitor_buckets: int = 16,
                  max_inv: Optional[int] = None,
                  max_terms: Optional[int] = None,
-                 laplace: float = 1.0, superchunk: int = 1):
+                 laplace: float = 1.0, superchunk: int = 1, mesh=None):
         warn_legacy("MonitoredCEPFleetServingEngine")
         self.pattern = pattern
         self.planner = make_planner(planner)
@@ -210,7 +211,7 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
             pattern, self.planner, self.policies, (max_inv, max_terms),
             device=engine_cfg.device)
         super().__init__(pattern, k, plan0, engine_cfg, kind, chunk_cap,
-                         laplace=laplace, superchunk=superchunk)
+                         laplace=laplace, superchunk=superchunk, mesh=mesh)
         self.plans = [plan0] * k
         self.monitor = self.fleet.init_monitor(monitor_buckets)
         self.violations = np.zeros(k, np.int64)

@@ -16,10 +16,10 @@ add into a free slot makes no CUDA-graph capture, and bucket growth
 captures again.
 
 Overflow is asserted zero: match-capacity truncation makes counts
-plan-dependent.  Not ported yet (ROADMAP Queue 1 item 5): the device mesh
-(``test_mesh_d1_path_matches``) and the process-wide trace memo
-(``test_trace_memo_lru_cap``).  Superchunk windows:
-``tests/test_torch_rulebook_superchunk.py``.
+plan-dependent.  The device mesh (``test_mesh_d1_path_matches``) is held
+in ``tests/test_torch_sharding.py``, the process-wide memo
+(``test_trace_memo_lru_cap``) in ``tests/test_torch_memo.py``.
+Superchunk windows: ``tests/test_torch_rulebook_superchunk.py``.
 """
 
 import jax.numpy as jnp
@@ -423,9 +423,10 @@ def test_cuda_hot_add_captures_nothing_growth_recaptures(cuda_device):
     """Superchunk windows on the card: a hot add into a free slot is row
     writes (no kernel build, no CUDA-graph capture); adding into a full
     bucket grows it and its next window captures once more."""
-    from repro_torch.core import scan
+    from repro_torch.core import fleet, scan
     from repro_torch.kernels import window_join
 
+    fleet.clear_trace_memo()  # count this book's captures from none
     chunks = make_chunks(6, 12)
     cs = [c for c, _, _, _ in chunks]
     edges = [(t0, t1) for _, _, t0, t1 in chunks]

@@ -15,11 +15,11 @@ cases: ``run`` windowing a stream fed in segments, the unmonitored
 window, and a hot add between windows.  On a GPU: the captured window
 equals the CPU window, also with the plain versions (``backend="ref"``).
 
-Not ported yet (ROADMAP Queue 1 item 5): the meshed window
-(``test_superchunk_mesh_d1_matches``) and the trace memo's growth case
-(``test_growth_under_superchunk_reenters_memo``; the port's counterpart,
-a re-capture on growth, is a ``gpu`` test in
-``tests/test_torch_rulebook.py``).
+The meshed window (``test_superchunk_mesh_d1_matches``) is held in
+``tests/test_torch_sharding.py``, the memo's growth case
+(``test_growth_under_superchunk_reenters_memo``) in
+``tests/test_torch_memo.py``; the re-capture on growth on the card is a
+``gpu`` test in ``tests/test_torch_rulebook.py``.
 """
 
 import jax.numpy as jnp

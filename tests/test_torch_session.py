@@ -19,6 +19,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from repro import cep as jcep
 from repro.cep import P as JP
@@ -35,6 +36,7 @@ from repro_torch.core import fleet
 from repro_torch.core.decision import InvariantPolicy, make_policy
 from repro_torch.core.engine import EngineConfig
 from repro_torch.data.cep_streams import StreamConfig, make_stream
+from repro_torch.distributed import CepMesh
 
 INT_FIELDS = ("chunks", "events", "matches", "replans", "deployments",
               "violations", "host_syncs", "overflow", "dropped",
@@ -228,8 +230,12 @@ def test_plan_resolution_and_deferred_features():
             streams(1))
     with pytest.raises(ValueError, match="superchunk"):
         RuntimeConfig(device="cpu", superchunk=0)
+    # A D=1 mesh opens (tests/test_torch_sharding.py runs it); a split
+    # over two devices waits for a multi-GPU host.
+    assert cep.open(rule(P), plan="order", config=cfg, mesh="auto")
+    two = CepMesh((torch.device("cpu"),) * 2)
     with pytest.raises(NotImplementedError, match="mesh"):
-        cep.open(rule(P), plan="order", config=cfg, mesh="auto")
+        cep.open(rule(P), partitions=2, plan="order", config=cfg, mesh=two)
     assert RuntimeConfig().device == "cuda"
 
 
@@ -316,6 +322,7 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.data.scenarios.citibike",
         "repro_torch.data.scenarios.flowsense",
         "repro_torch.data.scenarios.fraud",
+        "repro_torch.distributed", "repro_torch.distributed.sharding",
         "repro_torch.kernels", "repro_torch.kernels.ops",
         "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
         "repro_torch.serving", "repro_torch.serving.engine",

@@ -290,13 +290,15 @@ def test_cuda_capture_survives_garbage_collection(cuda_device):
     whenever it runs.  Destroying a graph while a stream captures
     invalidates the capture, so the collector is held off during one;
     here it is set to run on nearly every allocation while a new session
-    captures, with a dropped session's graphs waiting to be collected."""
+    captures, with a dropped session's graphs waiting to be collected
+    (the memo dropped too, so the new session captures anew)."""
     import gc
 
     eager = port_runner(4, superchunk=4).run(streams(4))
     dropped = port_runner(4, superchunk=4, device="cuda")
     dropped.run(streams(4))
     del dropped
+    fleet.clear_trace_memo()
     old = gc.get_threshold()
     gc.set_threshold(1, 1, 1)
     try:
