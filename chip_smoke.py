@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the CEP runtime on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the CEP runtime and its LM stack on one
+NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -129,7 +130,32 @@ Phases (each prints its seconds; any failure exits non-zero):
               The kernels phase also holds the kernels at the adaptive
               loop's single-stream shapes (K = 1: the packed join and
               row count at M = 8192, B = 128; the tree join and the
-              selection at the escalation limit M = B = 32768).
+              selection at the escalation limit M = B = 32768);
+18. lm serving — ``repro_torch.launch.serve.main(["--arch", a,
+              "--requests", "16", "--slots", "4"])`` at full width and
+              depth (f32, random weights drawn on the card) for
+              olmo-1b, mamba2-1.3b and zamba2-1.2b: every request
+              completes with 16 tokens, each the argmax of the finite
+              logits its prefill or decode step produced; prints prefill
+              tokens/s, decode ms per step and tokens/s, peak memory,
+              batch replans and deployments; profiles 8 decode steps;
+              and, for two requests, how far a teacher-forced forward on
+              the card is from the served logits beside how far the same
+              forward on the CPU is from the card's (measurements: at
+              full depth the reference's init makes olmo's f32 forward
+              chaotic, PERF.md);
+19. lm families — one config per family at full width, cut to two
+              layers (paligemma: one), weights drawn on the CPU and
+              copied to the card: forward, prefill and 4 decode steps on
+              the card equal the port's CPU run within 2e-3 of the
+              largest logit, with greedy tokens equal wherever the CPU's
+              top-2 margin is clear; on the card, prefill plus
+              teacher-forced decode equals the forward, and a two-slot
+              ``ServingEngine`` (one prompt padded to its bucket) equals
+              the forward (token families).
+              The CEP kernels' launch counters are zeroed before each LM
+              phase and read after it: 0 launches, recorded as the "lm
+              serving" and "lm families" entries of ``launches_by_path``.
 
 Launch counts: the counters are zeroed just before each path runs and
 read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
@@ -232,6 +258,33 @@ RUN_FIELDS = ("chunks", "events", "full_matches", "pm_created", "overflow",
 ORACLE_SIZE = 4
 ORACLE_CHUNKS = 20
 SCENARIO_CONFIGS = ("adaptive", "adaptive_s8", "static", "pinned")
+
+# The LM serving launcher at full size (repro/launch/serve.py's defaults:
+# cache_len 256, max_new 16, classes [16, 32, 64]), per arch.
+LM_SERVE_ARCHS = ("olmo-1b", "mamba2-1.3b", "zamba2-1.2b")
+LM_REQUESTS = 16
+LM_SLOTS = 4
+LM_MAX_NEW = 16
+# Decode steps profiled per served arch.
+LM_PROFILE_STEPS = 8
+# One config per family at full width, cut to LM_LAYERS layers (zamba2:
+# one shared-block call), on the card against the port's CPU run: a
+# (LM_B, LM_S) batch, prefill, LM_DECODE_STEPS decode steps.  paligemma
+# is cut to one layer: its MQA keys draw at scale 1 (the reference's
+# fan-in of wk (d, 1, hd) is one kv head), the worst-conditioned f32
+# forward of the six; at two layers its card and CPU runs differed by
+# more than LM_TOL (PERF.md).
+LM_FAMILY_ARCHS = ("olmo-1b", "deepseek-moe-16b", "paligemma-3b",
+                   "musicgen-large", "mamba2-1.3b", "zamba2-1.2b")
+LM_LAYERS = 2
+LM_LAYERS_OF = {"paligemma-3b": 1}
+LM_B = 2
+LM_S = 16
+LM_DECODE_STEPS = 4
+# Logits compare within LM_TOL of the largest reference logit: f32 on
+# both sides, with other reduction orders (cuBLAS against the CPU's
+# GEMMs, a decode step's cache against a forward's full sequence).
+LM_TOL = 2e-3
 
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
@@ -1878,6 +1931,410 @@ def check_scenarios(device="cuda", names=None):
           f"{rb.match_counts.tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# The LM forward and serving path
+# ---------------------------------------------------------------------------
+
+
+def lm_bound(want):
+    """The logit gate: ``LM_TOL`` of ``want``'s largest magnitude (f32 on
+    both sides, different reduction orders)."""
+    return LM_TOL * float(want.float().abs().max())
+
+
+def lm_gate(got, want, what):
+    """Fails unless max |got - want| is within ``lm_bound(want)``; returns
+    max |got - want| / max |want|."""
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    bound = lm_bound(want)
+    if not err <= bound:
+        raise AssertionError(f"{what}: max |diff| {err} > {bound}")
+    return err * LM_TOL / bound
+
+
+def greedy_agrees(logits, want_logits, what):
+    """The greedy tokens of ``logits`` equal ``want_logits``'s wherever the
+    latter's top-2 margin exceeds twice ``lm_bound``; returns (checked,
+    rows)."""
+    bound = lm_bound(want_logits)
+    want = want_logits.float().cpu().reshape(-1, want_logits.shape[-1])
+    got = logits.float().cpu().reshape(-1, logits.shape[-1])
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * bound
+    if not bool((got.argmax(-1) == want.argmax(-1))[sure].all()):
+        raise AssertionError(f"{what}: greedy tokens differ where the "
+                             f"margin exceeds {2 * bound}")
+    return int(sure.sum()), int(sure.numel())
+
+
+def recording_engine():
+    """``ServingEngine`` that times its calls (each ends in a host read of
+    its result, so the host clock covers the device work) and keeps, per
+    slot, the logits every prefill and decode step produced for it."""
+    import numpy as np
+
+    from repro_torch.serving import ServingEngine
+
+    class RecordingEngine(ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.open, self.closed = {}, []
+            self.prefill_s, self.prefill_tokens, self.prefills = 0.0, 0, 0
+            self.decode_s = []
+
+        def prefill_one(self, tokens, slot):
+            t = time.perf_counter()
+            tok = super().prefill_one(tokens, slot)
+            self.prefill_s += time.perf_counter() - t
+            self.prefill_tokens += len(tokens)
+            self.prefills += 1
+            self.open[slot] = (np.array(tokens), [self.last_logits.clone()])
+            return tok
+
+        def decode(self, tokens):
+            t = time.perf_counter()
+            nxt = super().decode(tokens)
+            self.decode_s.append(time.perf_counter() - t)
+            for slot, (_, logits) in self.open.items():
+                logits.append(self.last_logits[slot].clone())
+            return nxt
+
+        def reset_slot(self, slot):
+            super().reset_slot(slot)
+            self.closed.append(self.open.pop(slot))
+
+    return RecordingEngine
+
+
+def profile_lm_decode(eng, arch, top=6):
+    """``LM_PROFILE_STEPS`` decode steps of a served engine (all slots
+    idle, after a warm step) under ``torch.profiler``: the top-level
+    torch ops per step (the host's dispatch work), device-busy share and
+    the largest device ops."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = np.zeros(eng.batch_slots, np.int32)
+    eng.decode(tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        t = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            eng.decode(tokens)
+        wall = time.perf_counter() - t
+    ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    print(f"   {arch}: {ops / LM_PROFILE_STEPS:.1f} top-level torch ops per "
+          f"decode step")
+    report_profile(prof, wall, LM_PROFILE_STEPS, f"{arch} decode", top,
+                   forbid_scans=False, unit="steps")
+
+
+def forced_forward(model, prompt, tokens):
+    """The forward's logits over ``prompt`` then ``tokens[:-1]`` at the
+    positions that predicted ``tokens`` (teacher forcing)."""
+    import numpy as np
+    import torch
+
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
+    chunk = model.cfg.ssm_chunk
+    if model.cfg.family in ("ssm", "hybrid") and len(seq) > chunk:
+        # The chunked scan takes whole chunks; the model is causal, so
+        # padding at the end leaves the earlier positions' logits alone.
+        seq = np.pad(seq, (0, (-len(seq)) % chunk))
+    with torch.no_grad():
+        logits, _ = model.forward({"tokens": seq[None]})
+    return logits[0, len(prompt) - 1:len(prompt) - 1 + len(tokens)]
+
+
+def check_lm_serving(smi):
+    """``repro_torch.launch.serve.main`` at full size on the card, per arch
+    of ``LM_SERVE_ARCHS``: every request completes with ``LM_MAX_NEW``
+    tokens, each the argmax of the finite logits its engine call produced;
+    prints prefill tokens/s, decode ms per step, decode tokens/s and peak
+    memory.  For two requests it prints how far a teacher-forced forward
+    on the card is from the served logits, beside how far the same forward
+    on the CPU is from the card's: at full depth the reference's random
+    init leaves olmo's f32 forward ill-conditioned (PERF.md), so these are
+    measurements; the gated consistency checks run at two layers in
+    ``check_lm_families``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    engine_cls = recording_engine()
+    for arch in LM_SERVE_ARCHS:
+        argv = ["--arch", arch, "--requests", str(LM_REQUESTS),
+                "--slots", str(LM_SLOTS)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        saved = serve.ServingEngine
+        serve.ServingEngine = engine_cls
+        try:
+            t = time.perf_counter()
+            sched = serve.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            serve.ServingEngine = saved
+        peak = torch.cuda.max_memory_allocated()
+        eng = sched.engine
+        if len(sched.completed) != LM_REQUESTS or any(
+                len(r.out) != LM_MAX_NEW for r in sched.completed):
+            raise AssertionError(f"{arch}: {len(sched.completed)} of "
+                                 f"{LM_REQUESTS} requests completed with "
+                                 f"{LM_MAX_NEW} tokens")
+        records = []
+        for req in sched.completed:
+            prompt, steps = next(r for r in eng.closed
+                                 if np.array_equal(r[0], req.prompt)
+                                 and len(r[1]) == len(req.out))
+            served = torch.stack(steps)
+            if not bool(torch.isfinite(served).all()) or not torch.equal(
+                    served.argmax(-1).cpu(), torch.tensor(req.out)):
+                raise AssertionError(f"{arch} request {req.rid}: served "
+                                     "tokens are not the argmax of finite "
+                                     "recorded logits")
+            records.append((req, served))
+        dec = np.array(eng.decode_s)
+        dec_tokens = sum(len(r.out) for r in sched.completed) - eng.prefills
+        n_params = sum(p.numel() for p in eng.model.parameters())
+        print(f"   {arch} ({eng.cfg.n_layers} layers, {n_params} params, "
+              f"f32; {smi}): {len(sched.completed)} requests x "
+              f"{LM_MAX_NEW} tokens, each the argmax of its finite logits, "
+              f"in {secs:.3f} s (weights drawn on the card included); "
+              f"prefill {eng.prefill_tokens} prompt tokens in "
+              f"{eng.prefills} calls, {eng.prefill_s:.4f} s = "
+              f"{eng.prefill_tokens / eng.prefill_s:.1f} tokens/s; decode "
+              f"{len(dec)} steps x {eng.batch_slots} slots, median "
+              f"{np.median(dec) * 1e3:.3f} ms/step (mean "
+              f"{dec.mean() * 1e3:.3f}, first {dec[0] * 1e3:.3f}), "
+              f"{dec_tokens} request tokens in {dec.sum():.4f} s = "
+              f"{dec_tokens / dec.sum():.1f} tokens/s; peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB ({peak} bytes); batch replans="
+              f"{sched.planner.replans} deployments="
+              f"{sched.planner.deployments}", flush=True)
+        profile_lm_decode(eng, arch)
+        cpu = Model(eng.cfg, "cpu")
+        cpu.load_state_dict(eng.model.state_dict())
+        for req, served in records[:2]:
+            card = forced_forward(eng.model, req.prompt, req.out)
+            host = forced_forward(cpu, req.prompt, req.out)
+            scale = float(card.abs().max())
+            agree = int((card.argmax(-1).cpu() == host.argmax(-1)).sum())
+            print(f"   {arch} request {req.rid} (prompt {len(req.prompt)}): "
+                  f"teacher-forced forward on the card vs the served logits "
+                  f"max |diff| / max |logit| "
+                  f"{float((served - card).abs().max()) / scale:.3e}; the "
+                  f"same forward on the CPU vs the card's "
+                  f"{float((host - card.cpu()).abs().max()) / scale:.3e} "
+                  f"(argmax equal at {agree} of {len(req.out)})", flush=True)
+        del sched, eng, cpu, records
+    torch.cuda.empty_cache()
+
+
+def lm_inputs(cfg, rng):
+    """A (``LM_B``, ``LM_S``) batch of the family's inputs, and the decode
+    steps' frame embeddings for audio (else None)."""
+    import numpy as np
+
+    batch = {}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(
+            size=(LM_B, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                np.float32)
+    if cfg.frontend_is_embedding:
+        batch["embeds"] = rng.normal(size=(LM_B, LM_S, cfg.d_model)).astype(
+            np.float32)
+        return batch, [rng.normal(size=(LM_B, 1, cfg.d_model)).astype(
+            np.float32) for _ in range(LM_DECODE_STEPS)]
+    batch["tokens"] = rng.integers(0, cfg.vocab, (LM_B, LM_S)).astype(
+        np.int32)
+    return batch, None
+
+
+def lm_prefix(cfg):
+    return cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+
+
+def lm_run(model, batch, embeds, tokens=None):
+    """forward, prefill and ``LM_DECODE_STEPS`` decode steps; the decode
+    inputs are ``embeds`` (audio), else ``tokens`` if given, else this
+    run's greedy tokens.  Returns the logits of each, the tokens fed and
+    the forward's metrics."""
+    import torch
+
+    seq = LM_S + lm_prefix(model.cfg)
+    with torch.no_grad():
+        fwd, metrics = model.forward(batch)
+    logits, cache = model.prefill(batch, seq + LM_DECODE_STEPS)
+    out, fed = [fwd, logits], []
+    for i in range(LM_DECODE_STEPS):
+        if embeds is not None:
+            x = embeds[i]
+        else:
+            x = (tokens[i] if tokens is not None
+                 else logits[:, -1].argmax(-1, keepdim=True).cpu().numpy())
+            fed.append(x)
+        logits, cache = model.decode_step(cache, x)
+        out.append(logits)
+    return out, fed, metrics
+
+
+def lm_consistency(model, batch, forward_logits):
+    """test_prefill_decode_consistency at full width: prefill the first
+    ``LM_S - n`` positions, decode the last ``n`` teacher-forced, and hold
+    the logits to the forward's at those positions; returns the ratio."""
+    import torch
+
+    n = LM_DECODE_STEPS
+    key = "embeds" if "embeds" in batch else "tokens"
+    seq = batch[key]
+    head = dict(batch, **{key: seq[:, :LM_S - n]})
+    logits, cache = model.prefill(head, LM_S + lm_prefix(model.cfg))
+    outs = [logits]
+    for t in range(LM_S - n, LM_S):
+        logits, cache = model.decode_step(cache, seq[:, t:t + 1])
+        outs.append(logits)
+    return lm_gate(torch.cat(outs[:-1], 1),
+                   forward_logits[:, LM_S - n - 1:LM_S - 1],
+                   "prefill/decode vs forward")
+
+
+def lm_engine_consistency(model, rng):
+    """``ServingEngine`` on the card, two slots (an attention family's
+    first prompt is padded to its bucket), ``LM_DECODE_STEPS`` steps: each
+    slot's logits equal a teacher-forced forward's; returns the ratio."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import ServingEngine
+
+    cfg = model.cfg
+    eng = ServingEngine(cfg, model, batch_slots=2, cache_len=64,
+                        device=model.device)
+    lens = (16, 32) if cfg.family in ("ssm", "hybrid") else (11, 16)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    toks, rec = [], []
+    for i, p in enumerate(prompts):
+        toks.append([eng.prefill_one(p, i)])
+        rec.append([eng.last_logits.clone()])
+    for _ in range(LM_DECODE_STEPS):
+        nxt = eng.decode(np.array([t[-1] for t in toks], np.int32))
+        for i in range(2):
+            toks[i].append(int(nxt[i]))
+            rec[i].append(eng.last_logits[i].clone())
+    worst = 0.0
+    for i, p in enumerate(prompts):
+        want = forced_forward(model, p, toks[i])
+        worst = max(worst, lm_gate(torch.stack(rec[i]), want,
+                                   f"engine slot {i} vs forward"))
+    return worst
+
+
+def check_lm_families(smi):
+    """One config per family at full width cut to ``LM_LAYERS`` layers
+    (``LM_LAYERS_OF`` where listed):
+    weights drawn on the CPU from a seeded generator and copied to the
+    card; forward, prefill and the decode steps on the card equal the
+    port's CPU run within ``LM_TOL`` of the largest CPU logit, with the
+    greedy tokens equal wherever the CPU's top-2 margin is clear; on the
+    card, prefill + teacher-forced decode equals the forward, and (token
+    families) a two-slot ``ServingEngine`` equals the forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    for arch in LM_FAMILY_ARCHS:
+        cfg = get_config(arch).with_(
+            n_layers=LM_LAYERS_OF.get(arch, LM_LAYERS))
+        t = time.perf_counter()
+        cpu = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        init_s = time.perf_counter() - t
+        gpu = Model(cfg, "cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(LM_FAMILY_ARCHS.index(arch))
+        batch, embeds = lm_inputs(cfg, rng)
+        t = time.perf_counter()
+        want, fed, cpu_metrics = lm_run(cpu, batch, embeds)
+        cpu_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, _, gpu_metrics = lm_run(gpu, batch, embeds, fed or None)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t
+        worst, checked, rows = 0.0, 0, 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            what = ("forward", "prefill")[i] if i < 2 else f"decode {i - 1}"
+            worst = max(worst, lm_gate(g, w, f"{arch} {what} card vs CPU"))
+            c, r = greedy_agrees(g, w, f"{arch} {what}")
+            checked, rows = checked + c, rows + r
+        same = gpu
+        if cfg.family == "moe":
+            # Capacity is per call (T tokens), so a forward and a decode
+            # step drop different assignments by design; with capacity
+            # E/K x the load nothing drops and the two must agree.
+            same = Model(cfg.with_(capacity_factor=cfg.n_experts
+                                   / cfg.top_k), gpu.device)
+            same.load_state_dict(gpu.state_dict())
+            with torch.no_grad():
+                got[0] = same.forward(batch)[0]
+        forced = lm_consistency(same, batch, got[0])
+        line = (f"   {arch} [{cfg.family}] {cfg.n_layers} of "
+                f"{get_config(arch).n_layers} layers, "
+                f"{sum(p.numel() for p in cpu.parameters())} params "
+                f"(init on the CPU {init_s:.2f} s): forward, prefill and "
+                f"{LM_DECODE_STEPS} decode steps, card vs CPU max |diff| / "
+                f"max |logit| {worst:.3e} <= {LM_TOL}, greedy tokens equal "
+                f"at {checked} of {rows} rows with a clear margin (CPU "
+                f"{cpu_s:.3f} s, card {gpu_s:.3f} s); on the card, prefill "
+                f"+ decode vs forward {forced:.3e}")
+        if cfg.family in ("dense", "moe", "ssm", "hybrid"):
+            line += (f", two-slot engine vs forward "
+                     f"{lm_engine_consistency(same, rng):.3e}")
+        if cfg.family == "moe":
+            line += (" (capacity E/K: no drops); expert loads card vs CPU "
+                     "equal: " + str(torch.equal(
+                         gpu_metrics["expert_load"].cpu(),
+                         cpu_metrics["expert_load"])))
+        print(line + f" ({smi})", flush=True)
+        del cpu, gpu, same
+        torch.cuda.empty_cache()
+
+
+def check_lm_paths(smi):
+    """The two LM phases with the CEP kernels' launch counters zeroed just
+    before and read just after: the LM paths launch none of them."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls must not run in TF32")
+    launches = {}
+    for path, check in (("lm serving", check_lm_serving),
+                        ("lm families", check_lm_families)):
+        t = phase(path)
+        kops.reset_launch_counts()
+        check(smi)
+        launches[path] = {k: kops.LAUNCHES[k] + kops.GRAPH_LAUNCHES[k]
+                          for k in kops.LAUNCHES}
+        if any(launches[path].values()):
+            raise AssertionError(f"{path} launched a CEP kernel: "
+                                 f"{launches[path]}")
+        print(f"   CEP kernel launches on the {path} path: "
+              f"{launches[path]}")
+        done(path, t)
+    return launches
+
+
 def bench_run(path, superchunk, chunks, backend=None):
     """One bench run of a fresh K=16 session over the stacked ``chunks``:
     its first ``BENCH_SPLIT`` chunks (in which a window path captures its
@@ -2014,7 +2471,8 @@ def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
                    f"{plan} window" if superchunk > 1 else plan, top)
 
 
-def report_profile(prof, wall, n_chunks, what, top, forbid_scans=True):
+def report_profile(prof, wall, n_chunks, what, top, forbid_scans=True,
+                   unit="chunks"):
     """Prints a profiled stretch's device-busy share of the wall, the ops
     with the most device self time and the join-family kernels named;
     fails if a device-wide scan (an M*B-cell scan) shows up on a fleet
@@ -2030,7 +2488,7 @@ def report_profile(prof, wall, n_chunks, what, top, forbid_scans=True):
     named = sorted(k for k in ("packed_kernel", "join_kernel",
                                "rowcount_kernel", "select_kernel")
                    if any(k in e.key for e in rows))
-    print(f"   profiled {n_chunks} chunks of the {what} path: wall "
+    print(f"   profiled {n_chunks} {unit} of the {what} path: wall "
           f"{wall:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f}% of wall); join-family "
           f"kernels named: {named or 'none'}")
@@ -2209,6 +2667,8 @@ def main() -> int:
     t = phase("scenarios")
     check_scenarios()
     done("scenarios", t)
+
+    launches.update(check_lm_paths(smi))
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(

@@ -1,8 +1,17 @@
-"""The CEP serving fronts of the port: K stream partitions, one batched
-fleet, keyed batches in, per-partition match counts out.
+"""Batched serving engines of the port: LM prefill/decode and the CEP
+fleet fronts.
 
-The port of ``repro.serving.engine``'s CEP fronts (the LM
-``ServingEngine`` comes with the LM stack).  ``CEPFleetServingEngine``
+``ServingEngine`` (the port of ``repro.serving.engine.ServingEngine``)
+wraps ``Model.prefill`` / ``Model.decode_step`` with a fixed batch
+capacity.  Requests occupy batch *slots*; finished slots are refilled by
+the scheduler (slot state is data).  Per-request cache write indices
+support heterogeneous positions in one batch, so one decode step serves
+any request mix.  It runs eagerly on the device: a prompt is bucketed to
+a power of two as in the reference, whose buckets key its compiled
+programs.
+
+The CEP serving fronts: K stream partitions, one batched fleet, keyed
+batches in, per-partition match counts out.  ``CEPFleetServingEngine``
 owns the stacked ring-buffer state and the per-partition plan rows; a
 keyed event batch is routed by ``key % K`` into a stacked per-partition
 chunk and the whole fleet advances with one fleet step.  Deploying a plan
@@ -20,7 +29,6 @@ the monitored front cuts a window at a mid-window flag, so it equals
 looping ``process_chunk``.  Both fronts take ``mesh=`` (the fleet's
 ``cep`` device mesh).
 """
-
 from __future__ import annotations
 
 from typing import Optional
@@ -31,11 +39,82 @@ import torch
 from ..core.adaptation import make_planner
 from ..core.compat import warn_legacy
 from ..core.decision import InvariantPolicy
-from ..core.engine import EngineConfig
+from ..core.engine import EngineConfig, canonical_device, resolve_device
 from ..core.fleet import (FleetEngine, prime_invariant_policies,
                           replan_flagged_partition, route_events)
 from ..core.patterns import Pattern
 from ..core.stats import Stat
+from ..models.config import ModelConfig
+from ..models.model import Cache, Model
+from ..models.params import load_params
+
+
+class ServingEngine:
+    """LM prefill and decode over ``batch_slots`` request slots.
+
+    ``params`` is the port's ``Model`` (on ``device``) or a reference
+    parameter pytree, which is loaded into a new ``Model`` on ``device``.
+    The engine owns its cache and updates a slot in place when a prompt
+    is prefilled into it.  ``last_logits`` holds the logits of the last
+    ``prefill_one`` ((V,)) or ``decode`` ((slots, V)), on the device.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, batch_slots: int,
+                 cache_len: int, device="cuda"):
+        dev = resolve_device(device)
+        if isinstance(params, Model):
+            if canonical_device(params.device) != canonical_device(dev):
+                raise ValueError(f"model on {params.device}, engine asked "
+                                 f"for {dev}")
+            self.model = params
+        else:
+            self.model = Model(cfg, dev)
+            load_params(self.model, params)
+        self.cfg = cfg
+        self.batch_slots = batch_slots
+        self.cache_len = cache_len
+        self.cache: Cache = self.model.init_cache(batch_slots, cache_len)
+        self.last_logits: Optional[torch.Tensor] = None
+
+    def prefill_one(self, tokens: np.ndarray, slot: int) -> int:
+        """Prefill a single request's prompt into ``slot``.
+
+        Prompt lengths are bucketed to powers of two (at least 16) and
+        padded, with the true length passed to ``prefill``; SSM and hybrid
+        prompts must be exactly a bucket long.  Returns the first
+        generated token.
+        """
+        plen = len(tokens)
+        bucket = 1 << max(4, (plen - 1).bit_length())
+        exact = self.cfg.family in ("ssm", "hybrid")
+        if exact and bucket != plen:
+            raise ValueError(
+                "SSM-state prefill needs exact-length prompts; generate "
+                f"prompts at bucket sizes (got {plen}, bucket {bucket})")
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :plen] = tokens
+        tl = None if exact else np.asarray([plen], np.int32)
+        logits, one = self.model.prefill({"tokens": padded}, self.cache_len,
+                                         true_lens=tl)
+        # Merge the single-request cache into the batch cache at `slot`:
+        # kv leaves (L, B, T, K, hd); ssm conv (L, B, W, CH); ssd
+        # (L, B, H, P, N).
+        for big, small in ((self.cache.kv, one.kv), (self.cache.ssm, one.ssm)):
+            for b, s in zip(big, small):
+                b[:, slot] = s[:, 0]
+        self.cache.index[slot] = plen
+        self.last_logits = logits[0, 0]
+        return int(torch.argmax(self.last_logits))
+
+    def decode(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step for the whole batch; tokens: (slots,) i32."""
+        logits, self.cache = self.model.decode_step(
+            self.cache, np.asarray(tokens)[:, None])
+        self.last_logits = logits[:, 0]
+        return torch.argmax(self.last_logits, dim=-1).cpu().numpy()
+
+    def reset_slot(self, slot: int) -> None:
+        self.cache.index[slot] = 0
 
 
 class CEPFleetServingEngine:

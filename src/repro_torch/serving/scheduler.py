@@ -1,16 +1,104 @@
-"""Time-sliced keyed-event router feeding the port's CEP fleet.
+"""Continuous-batching LM scheduler and the time-sliced keyed-event
+router feeding the port's CEP fleet (the port of
+``repro.serving.scheduler``).
 
-The port of ``repro.serving.scheduler.CEPStreamRouter`` (the LM
-``Scheduler`` and ``Request`` come with the LM stack).
+LM requests queue per length-class (pow2 prompt buckets).  Each scheduling
+tick the scheduler fills free batch slots following the current
+``BatchPlan``'s class priority (``adaptive.batching``), prefills the
+admitted prompts, then advances the whole batch one decode step.  The
+batch plan is re-generated only when a class-rate invariant is violated —
+a rate flip between short and long prompt classes re-orders admission.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from .engine import CEPFleetServingEngine
+from ..adaptive.batching import AdaptiveBatchPlanner
+from .engine import CEPFleetServingEngine, ServingEngine
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    slot: Optional[int] = None
+
+    @property
+    def done(self) -> bool:
+        return len(self.out) >= self.max_new
+
+
+class Scheduler:
+    def __init__(self, engine: ServingEngine, class_tokens: List[int],
+                 *, d: float = 0.15):
+        self.engine = engine
+        self.class_tokens = class_tokens
+        self.planner = AdaptiveBatchPlanner(
+            class_tokens, token_budget=engine.batch_slots * 64, d=d)
+        self.queues: Dict[int, List[Request]] = {
+            i: [] for i in range(len(class_tokens))}
+        self.slots: List[Optional[Request]] = \
+            [None] * engine.batch_slots
+        self.completed: List[Request] = []
+        self._tick_counts = np.zeros(len(class_tokens))
+
+    def _class_of(self, plen: int) -> int:
+        for i, t in enumerate(self.class_tokens):
+            if plen <= t:
+                return i
+        return len(self.class_tokens) - 1
+
+    def submit(self, req: Request) -> None:
+        c = self._class_of(len(req.prompt))
+        self.queues[c].append(req)
+        self._tick_counts[c] += 1
+
+    def tick(self) -> int:
+        """One scheduling round: replan-if-needed, admit, decode."""
+        self.planner.observe(self._tick_counts)
+        self._tick_counts[:] = 0
+        plan = self.planner.plan
+
+        # Admit requests into free slots in plan order.
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        order = plan.order if plan else range(len(self.class_tokens))
+        for c in order:
+            while free and self.queues[c]:
+                req = self.queues[c].pop(0)
+                slot = free.pop(0)
+                first = self.engine.prefill_one(req.prompt, slot)
+                req.out.append(first)
+                req.slot = slot
+                self.slots[slot] = req
+
+        # One decode step for every occupied slot.
+        tokens = np.zeros(self.engine.batch_slots, np.int32)
+        active = False
+        for i, r in enumerate(self.slots):
+            if r is not None:
+                tokens[i] = r.out[-1]
+                active = True
+        if active:
+            nxt = self.engine.decode(tokens)
+            for i, r in enumerate(self.slots):
+                if r is None:
+                    continue
+                r.out.append(int(nxt[i]))
+                if r.done:
+                    self.completed.append(r)
+                    self.engine.reset_slot(i)
+                    self.slots[i] = None
+        return sum(r is not None for r in self.slots)
+
+    @property
+    def pending(self) -> int:
+        return sum(len(q) for q in self.queues.values())
 
 
 class CEPStreamRouter:

@@ -305,7 +305,9 @@ def test_port_imports_neither_jax_nor_repro():
     the JAX package (checked in a fresh interpreter)."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     modules = [
-        "repro_torch", "repro_torch.cep", "repro_torch.cep.config",
+        "repro_torch", "repro_torch.adaptive",
+        "repro_torch.adaptive.batching", "repro_torch.cep",
+        "repro_torch.cep.config",
         "repro_torch.cep.dsl", "repro_torch.cep.rulebook",
         "repro_torch.cep.session",
         "repro_torch.core", "repro_torch.core.adaptation",
@@ -317,6 +319,14 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.patterns", "repro_torch.core.plans",
         "repro_torch.core.ref_engine", "repro_torch.core.scan",
         "repro_torch.core.stats", "repro_torch.core.zstream",
+        "repro_torch.configs", "repro_torch.configs.dbrx_132b",
+        "repro_torch.configs.deepseek_moe_16b",
+        "repro_torch.configs.mamba2_1p3b",
+        "repro_torch.configs.musicgen_large", "repro_torch.configs.olmo_1b",
+        "repro_torch.configs.paligemma_3b",
+        "repro_torch.configs.phi3_mini_3p8b",
+        "repro_torch.configs.stablelm_12b", "repro_torch.configs.yi_34b",
+        "repro_torch.configs.zamba2_1p2b",
         "repro_torch.data", "repro_torch.data.cep_streams",
         "repro_torch.data.scenarios", "repro_torch.data.scenarios.base",
         "repro_torch.data.scenarios.citibike",
@@ -325,6 +335,11 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.distributed", "repro_torch.distributed.sharding",
         "repro_torch.kernels", "repro_torch.kernels.ops",
         "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
+        "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.models", "repro_torch.models.config",
+        "repro_torch.models.layers", "repro_torch.models.model",
+        "repro_torch.models.moe", "repro_torch.models.params",
+        "repro_torch.models.ssm",
         "repro_torch.serving", "repro_torch.serving.engine",
         "repro_torch.serving.scheduler",
     ]
