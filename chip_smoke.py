@@ -153,9 +153,37 @@ Phases (each prints its seconds; any failure exits non-zero):
               teacher-forced decode equals the forward, and a two-slot
               ``ServingEngine`` (one prompt padded to its bucket) equals
               the forward (token families).
+20. lm train — ``repro_torch.launch.train.main(["--arch", "olmo-1b",
+              "--steps", "20", "--batch", "8", "--seq", "128"])`` at full
+              width and depth (f32, TF32 off, remat none, weights drawn on
+              the card): every step's ce, grad_norm and lr finite, every
+              parameter changed; prints ms per step (the first apart),
+              tokens/s, the model FLOP rate (6 N T) beside the f32 peak,
+              peak memory; then 3 more steps under ``torch.profiler``
+              (device-busy share, top ops, the optimizer's range) and one
+              AdamW update timed with CUDA events beside its byte bound;
+21. lm train consistency — olmo-1b at full width, 2 layers, weights drawn
+              on the card and copied to the CPU: per-leaf gradients card
+              vs CPU; 3 train steps (ce, grad_norm, parameter updates);
+              remat full and dots against none on the card (bit for bit
+              or not); microbatches=2 against 1;
+22. lm train resume — the same cut through ``launch.train``: 10 straight
+              steps against 5 with ``--ckpt-dir``/``--ckpt-every 5`` and a
+              restart with ``--resume`` to 10, parameters bit-equal;
+              prints checkpoint snapshot, write and restore seconds and
+              bytes; the directory (``build/lm_train_ckpt``) is deleted;
+23. lm train moe placement — deepseek-moe-16b at full width, 2 layers,
+              ``--adaptive-placement``, 12 steps: every step finite,
+              ``expert_load`` (2, 64) summing to T * 6 per layer; at each
+              deployment the loss of that step's batch equals the
+              unrelocated model's within 1e-5 and every MoE layer's
+              weights, router columns, m and v moved by the relocation;
+              prints governor replans and deployments.
               The CEP kernels' launch counters are zeroed before each LM
               phase and read after it: 0 launches, recorded as the "lm
-              serving" and "lm families" entries of ``launches_by_path``.
+              serving", "lm families", "lm train", "lm train
+              consistency", "lm train resume" and "lm train moe
+              placement" entries of ``launches_by_path``.
 
 Launch counts: the counters are zeroed just before each path runs and
 read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
@@ -189,6 +217,7 @@ with the medians and ranges.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -285,6 +314,51 @@ LM_DECODE_STEPS = 4
 # both sides, with other reduction orders (cuBLAS against the CPU's
 # GEMMs, a decode step's cache against a forward's full sequence).
 LM_TOL = 2e-3
+# The LM training phases.  "lm train": the launcher at full size with the
+# reference launcher's arguments (olmo-1b, batch 8 x 128, remat none);
+# TRAIN_PROFILE_STEPS more steps under torch.profiler.  The model FLOPs
+# of a step (6 N T) are set beside float32's non-tensor peak of one H100
+# (NVIDIA's data sheet, SXM part, dense): TF32 stays off, so the GEMMs
+# run in plain f32.
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_ARGV = ["--arch", "olmo-1b", "--steps", "20", "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+TRAIN_PROFILE_STEPS = 3
+F32_PEAK_FLOPS = 67e12
+# "lm train consistency", "resume" and "moe placement" cut their config
+# to TRAIN_LAYERS layers at full width (at full depth the reference's
+# init leaves olmo's f32 forward ill-conditioned: PERF.md).  The
+# consistency batch is (TRAIN_CHECK_B, TRAIN_CHECK_S) of make_batch.
+# Even at two layers that init keeps the model far from unit scale (wq
+# and wk drawn at 1/sqrt(H) put attention logits at a std of ~128, and
+# the loss starts above log(vocab)), so f32 rounding is amplified: the
+# logits of card and CPU differ by 2.8e-4 of the largest and the
+# gradients by up to 2.3e-3 of a leaf's largest (PERF.md).  Per-leaf
+# gradients compare within TRAIN_GRAD_TOL of the CPU leaf's largest.
+# AdamW's first step moves every element by lr times the sign of its
+# gradient, so elements whose gradient is within that rounding of zero
+# move opposite ways on the two devices, and the runs part from step 1:
+# over TRAIN_CHECK_STEPS steps ce and grad_norm compare within TRAIN_TOL
+# relative, the parameters' updates in L2 (|| dp_card - dp_cpu || /
+# || dp_cpu ||) within TRAIN_UPDATE_TOL.  microbatches=2 against 1 as the
+# reference test: one step of AdamWConfig(total_steps=2), parameters
+# within 2e-5.
+TRAIN_LAYERS = 2
+TRAIN_CHECK_B = 4
+TRAIN_CHECK_S = 128
+TRAIN_CHECK_STEPS = 3
+TRAIN_GRAD_TOL = 1e-2
+TRAIN_TOL = 2e-2
+TRAIN_UPDATE_TOL = 5e-2
+TRAIN_MB_TOL = 2e-5
+# The MoE placement phase: deepseek-moe-16b, 12 steps with the governor;
+# the loss of a deployment's batch before and after the relocation
+# compares within PLACEMENT_TOL relative (the combine's index_add_ sums a
+# token's expert outputs in another order once the experts move).
+PLACEMENT_ARGV = ["--arch", "deepseek-moe-16b", "--adaptive-placement",
+                  "--steps", "12", "--batch", str(TRAIN_BATCH), "--seq",
+                  str(TRAIN_SEQ)]
+PLACEMENT_TOL = 1e-5
 
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
@@ -2308,9 +2382,10 @@ def check_lm_families(smi):
         torch.cuda.empty_cache()
 
 
-def check_lm_paths(smi):
-    """The two LM phases with the CEP kernels' launch counters zeroed just
-    before and read just after: the LM paths launch none of them."""
+def run_lm_phases(smi, phases):
+    """Each (path, check) of ``phases`` with the CEP kernels' launch
+    counters zeroed just before and read just after: the LM paths launch
+    none of them.  Returns the launches per path."""
     import torch
 
     from repro_torch.kernels import ops as kops
@@ -2319,8 +2394,7 @@ def check_lm_paths(smi):
             torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("f32 matmuls must not run in TF32")
     launches = {}
-    for path, check in (("lm serving", check_lm_serving),
-                        ("lm families", check_lm_families)):
+    for path, check in phases:
         t = phase(path)
         kops.reset_launch_counts()
         check(smi)
@@ -2333,6 +2407,529 @@ def check_lm_paths(smi):
               f"{launches[path]}")
         done(path, t)
     return launches
+
+
+def check_lm_paths(smi):
+    """The two LM serving phases (``run_lm_phases``)."""
+    return run_lm_phases(smi, (("lm serving", check_lm_serving),
+                               ("lm families", check_lm_families)))
+# ---------------------------------------------------------------------------
+# The LM training path
+# ---------------------------------------------------------------------------
+
+
+def reset_peak(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_line(device):
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return "peak device memory not measured (CPU)"
+    peak = torch.cuda.max_memory_allocated()
+    return f"peak device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)"
+
+
+class StepRecorder:
+    """Stands in for ``launch.train.make_train_step``: each step runs
+    between device syncs on the host clock, and its metrics are read back
+    (``ce``, ``grad_norm``, ``lr``, ``expert_load``).  Keeps a slice of
+    every parameter from before the first step, the last step's (model,
+    opt_state, batch) and the step function's config."""
+
+    def __init__(self, device):
+        from repro_torch.train import train_step
+
+        self.device, self.make = device, train_step.make_train_step
+        self.seconds, self.metrics, self.first, self.last = [], [], None, None
+
+    def __call__(self, model, opt_cfg, **kw):
+        inner = self.make(model, opt_cfg, **kw)
+        self.opt_cfg = opt_cfg
+
+        def step(model, opt_state, batch):
+            if self.first is None:
+                self.first = {n: p.detach().flatten()[:4096].clone()
+                              for n, p in model.named_parameters()}
+            sync(self.device)
+            t = time.perf_counter()
+            out = inner(model, opt_state, batch)
+            sync(self.device)
+            self.seconds.append(time.perf_counter() - t)
+            m = out[2]
+            self.metrics.append(dict(
+                {k: float(m[k]) for k in ("ce", "grad_norm", "lr")},
+                **({"expert_load": m["expert_load"].cpu()}
+                   if "expert_load" in m else {})))
+            self.last = out[:2] + (batch,)
+            return out
+        return step
+
+    def check_finite(self, what):
+        import math
+
+        for i, m in enumerate(self.metrics):
+            if not all(math.isfinite(m[k]) for k in ("ce", "grad_norm", "lr")):
+                raise AssertionError(f"{what} step {i}: {m}")
+
+    def check_changed(self, model, what):
+        import torch
+
+        same = [n for n, p in model.named_parameters()
+                if torch.equal(p.detach().flatten()[:4096], self.first[n])]
+        if same:
+            raise AssertionError(f"{what}: parameters unchanged: {same}")
+
+
+@contextlib.contextmanager
+def patched(module, **names):
+    """Sets ``module``'s attributes to ``names`` inside the block and puts
+    the old ones back."""
+    old = {k: getattr(module, k) for k in names}
+    for k, v in names.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def profile_training(model, opt_state, opt_cfg, cfg, dcfg, start, top=8):
+    """``TRAIN_PROFILE_STEPS`` train steps under ``torch.profiler``:
+    device-busy share, the largest device ops, and the optimizer's device
+    time (its ``apply_update`` inside a ``record_function`` range); then
+    one update on a step's gradients timed with CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.data.lm_data import make_batch
+    from repro_torch.train import train_step
+    from repro_torch.train.optimizer import apply_update
+
+    def ranged(*a, **kw):
+        with record_function("adamw"):
+            return apply_update(*a, **kw)
+
+    step_fn = train_step.make_train_step(model, opt_cfg)
+    batches = [train_step.batch_to(make_batch(cfg, dcfg, start + i),
+                                   model.device)
+               for i in range(TRAIN_PROFILE_STEPS + 1)]
+    torch.cuda.synchronize()
+    with patched(train_step, apply_update=ranged), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        t = time.perf_counter()
+        for b in batches[:-1]:
+            model, opt_state, _ = step_fn(model, opt_state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    report_profile(prof, wall, TRAIN_PROFILE_STEPS, f"{cfg.name} train",
+                   top, forbid_scans=False, unit="steps", ranges=("adamw",))
+    _, _, grads = train_step._grads(model, batches[-1])
+    params = dict(model.named_parameters())
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    begin.record()
+    apply_update(opt_cfg, params, grads, opt_state)
+    end.record()
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() for p in params.values()) * 4 * 7
+    print(f"   one apply_update on a step's gradients: "
+          f"{begin.elapsed_time(end):.3f} ms (CUDA events); bound "
+          f"{1e3 * n_bytes / PEAK_BYTES_PER_S:.3f} ms (bytes: p, g, m, v "
+          f"read, p, m, v written once in f32)")
+
+
+def check_lm_train(smi, device="cuda"):
+    """``launch.train.main(TRAIN_ARGV)``: OLMo-1B at full width and depth,
+    20 steps; every step's ce, grad_norm and lr finite and every parameter
+    changed.  Prints ms per step (median; the first apart), tokens/s, the
+    model FLOP rate beside the f32 peak, and peak memory; then profiles
+    ``TRAIN_PROFILE_STEPS`` more steps."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data.lm_data import DataConfig
+    from repro_torch.launch import train
+
+    rec = StepRecorder(device)
+    reset_peak(device)
+    t = time.perf_counter()
+    with patched(train, make_train_step=rec):
+        model, opt_state = train.main(TRAIN_ARGV + ["--device", str(device)])
+    secs = time.perf_counter() - t
+    memory = peak_line(device)
+    rec.check_finite("lm train")
+    rec.check_changed(model, "lm train")
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(rec.seconds[1:])
+    flops = 6 * n * tokens
+    print(f"   {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {n} params, f32, remat none; {smi}): "
+          f"{len(rec.seconds)} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"in {secs:.3f} s "
+          f"(weights drawn on the card included), every ce, grad_norm and "
+          f"lr finite, every parameter changed; ce {rec.metrics[0]['ce']:.4f}"
+          f" -> {rec.metrics[-1]['ce']:.4f}; first step "
+          f"{rec.seconds[0] * 1e3:.3f} ms, median of the rest "
+          f"{med * 1e3:.3f} ms/step (min {min(rec.seconds[1:]) * 1e3:.3f}, "
+          f"max {max(rec.seconds[1:]) * 1e3:.3f}), {tokens / med:.1f} "
+          f"tokens/s; model FLOPs 6 N T = {flops:.4e} per step, "
+          f"{flops / med / 1e12:.2f} TFLOP/s = "
+          f"{100 * flops / med / F32_PEAK_FLOPS:.1f}% of the "
+          f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s f32 non-tensor peak (NVIDIA "
+          f"H100 SXM data sheet); bound {1e3 * flops / F32_PEAK_FLOPS:.1f} "
+          f"ms/step; {memory}", flush=True)
+    if torch.device(device).type == "cuda":
+        profile_training(model, opt_state, rec.opt_cfg, cfg,
+                         DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+                         len(rec.seconds))
+
+
+def leaf_ratios(got, want):
+    """Per leaf: max |got - want| / max |want| (0 where want is all 0 and
+    got equals it); ``None`` is zeros."""
+    import torch
+
+    out = {}
+    for n, w in want.items():
+        g = got[n]
+        w = torch.zeros(()) if w is None else w.float().cpu()
+        g = torch.zeros(()) if g is None else g.float().cpu()
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        out[n] = err / scale if scale else (0.0 if err == 0 else float("inf"))
+    return out
+
+
+def port_grads(model, batch):
+    """The loss and ``{name: grad or None}`` of one backward."""
+    from repro_torch.train.train_step import _grads
+
+    loss, _, grads = _grads(model, batch)
+    return float(loss), grads
+
+
+def check_lm_train_consistency(smi, device="cuda"):
+    """olmo-1b at full width cut to ``TRAIN_LAYERS`` layers, weights drawn
+    on the card and copied to a CPU ``Model``: per-leaf one-step gradients
+    card vs CPU; ``TRAIN_CHECK_STEPS`` train steps (ce, grad_norm per
+    step, the final parameters); on the card, remat full and dots against
+    none, and microbatches=2 against 1."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import batch_to, make_train_step
+
+    cfg = get_config("olmo-1b").with_(n_layers=TRAIN_LAYERS)
+    dev = torch.device(device)
+    card = Model(cfg, dev, remat="none").init(
+        torch.Generator(device=dev).manual_seed(0))
+    cpu = Model(cfg, "cpu", remat="none")
+    cpu.load_state_dict(card.state_dict())
+    dcfg = DataConfig(batch=TRAIN_CHECK_B, seq=TRAIN_CHECK_S)
+    batches = [make_batch(cfg, dcfg, s) for s in range(TRAIN_CHECK_STEPS)]
+    t = time.perf_counter()
+    cpu_loss, want = port_grads(cpu, batch_to(batches[0], "cpu"))
+    cpu_s = time.perf_counter() - t
+    card_loss, got = port_grads(card, batch_to(batches[0], dev))
+    ratios = leaf_ratios(got, want)
+    worst = max(ratios, key=ratios.get)
+    if ratios[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"lm train consistency: gradient of {worst} "
+                             f"card vs CPU {ratios[worst]} > {TRAIN_GRAD_TOL}")
+    print(f"   olmo-1b {TRAIN_LAYERS} of {get_config('olmo-1b').n_layers} "
+          f"layers, {sum(p.numel() for p in cpu.parameters())} params, batch "
+          f"{TRAIN_CHECK_B} x {TRAIN_CHECK_S}: loss card {card_loss:.6f} vs "
+          f"CPU {cpu_loss:.6f}; per-leaf gradients card vs CPU max |diff| / "
+          f"max |CPU grad| <= {ratios[worst]:.3e} ({worst}; gate "
+          f"{TRAIN_GRAD_TOL}; {len(ratios)} leaves, "
+          f"{sum(g is None for g in want.values())} without a gradient on "
+          f"both); CPU backward {cpu_s:.3f} s; largest ratios "
+          + ", ".join(f"{n} {ratios[n]:.3e}" for n in sorted(
+              ratios, key=ratios.get, reverse=True)[:6]), flush=True)
+
+    for mode in ("full", "dots"):
+        card.remat = mode
+        _, g = port_grads(card, batch_to(batches[0], dev))
+        r = leaf_ratios(g, got)
+        bits = sum((a is None and got[n] is None) or (
+            a is not None and torch.equal(a, got[n])) for n, a in g.items())
+        if max(r.values()) > TRAIN_GRAD_TOL:
+            raise AssertionError(f"remat {mode}: gradients differ from none "
+                                 f"by {max(r.values())}")
+        print(f"   remat {mode} vs none on the card: {bits} of {len(r)} "
+              f"leaves bit for bit, max ratio {max(r.values()):.3e}")
+    card.remat = "none"
+    del got, want, g
+
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=20)
+    start = {n: p.detach().cpu().clone() for n, p in cpu.named_parameters()}
+    runs = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        opt = init_state(opt_cfg, dict(model.named_parameters()))
+        step = make_train_step(model, opt_cfg)
+        ms = []
+        t = time.perf_counter()
+        for b in batches:
+            model, opt, m = step(model, opt, batch_to(b, model.device))
+            ms.append((float(m["ce"]), float(m["grad_norm"])))
+        runs[name] = (ms, time.perf_counter() - t)
+        del opt
+    worst_m = max(max(abs(gce / ce - 1), abs(ggn / gn - 1))
+                  for (ce, gn), (gce, ggn) in zip(runs["cpu"][0],
+                                                  runs["card"][0]))
+    num = den = 0.0
+    big, n_big = 0.0, 0
+    with torch.no_grad():
+        for (n, p), q in zip(cpu.named_parameters(), card.parameters()):
+            d = q.cpu() - p
+            num += float(d.double().square().sum())
+            den += float((p - start[n]).double().square().sum())
+            big = max(big, float(d.abs().max()))
+            n_big += int((d.abs() > 1e-6).sum())
+            q.copy_(start[n])  # back to the start for the checks below
+    rel = (num / den) ** 0.5
+    if worst_m > TRAIN_TOL or rel > TRAIN_UPDATE_TOL:
+        raise AssertionError(f"lm train consistency: {TRAIN_CHECK_STEPS} "
+                             f"steps card vs CPU: ce/grad_norm {worst_m}, "
+                             f"updates {rel}")
+    print(f"   {TRAIN_CHECK_STEPS} train steps card vs CPU: ce "
+          f"{[round(x[0], 6) for x in runs['card'][0]]} (CPU "
+          f"{[round(x[0], 6) for x in runs['cpu'][0]]}), ce and grad_norm "
+          f"within {worst_m:.3e} relative (gate {TRAIN_TOL}); parameter "
+          f"updates ||card - CPU|| / ||CPU|| {rel:.3e} (gate "
+          f"{TRAIN_UPDATE_TOL}), max |diff| {big:.3e}, {n_big} elements "
+          f"beyond 1e-6; CPU {runs['cpu'][1]:.3f} s, card "
+          f"{runs['card'][1]:.3f} s", flush=True)
+    del runs, cpu
+
+    mb_cfg = AdamWConfig(total_steps=2)
+    finals = {}
+    for mb in (1, 2):
+        opt = init_state(mb_cfg, dict(card.named_parameters()))
+        card, _, _ = make_train_step(card, mb_cfg, microbatches=mb)(
+            card, opt, batch_to(batches[0], dev))
+        with torch.no_grad():
+            finals[mb] = {n: p.detach().clone()
+                          for n, p in card.named_parameters()}
+            for n, p in card.named_parameters():
+                p.copy_(start[n])
+        del opt
+    diff = max(float((finals[2][n] - p).abs().max())
+               for n, p in finals[1].items())
+    if diff > TRAIN_MB_TOL:
+        raise AssertionError(f"microbatches=2 vs 1: {diff} > {TRAIN_MB_TOL}")
+    print(f"   microbatches=2 vs 1 on the card, one step of "
+          f"AdamWConfig(total_steps=2): parameters max |diff| {diff:.3e} "
+          f"(gate {TRAIN_MB_TOL}) ({smi})", flush=True)
+
+
+def timed_checkpoints(log):
+    """A ``CheckpointManager`` class that appends (what, step, seconds,
+    bytes) to ``log`` for each write (in the writer thread too), snapshot
+    and restore."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def _write(self, step, *rest):
+            t = time.perf_counter()
+            super()._write(step, *rest)
+            d = self._step_dir(step)
+            log.append(("write", step, time.perf_counter() - t,
+                        sum(os.path.getsize(os.path.join(d, f))
+                            for f in os.listdir(d))))
+
+        def _snapshot(self, state):
+            t = time.perf_counter()
+            out = super()._snapshot(state)
+            log.append(("snapshot", None, time.perf_counter() - t,
+                        sum(a.nbytes for a in out[0])))
+            return out
+
+        def restore(self, like, step=None, device=None):
+            t = time.perf_counter()
+            out = super().restore(like, step, device)
+            sync(device or "cpu")
+            log.append(("restore", step, time.perf_counter() - t, None))
+            return out
+    return Timed
+
+
+def check_lm_train_resume(smi, device="cuda"):
+    """olmo-1b at ``TRAIN_LAYERS`` layers: 10 straight steps against 5
+    steps with a checkpoint every 5 and a restart with ``--resume`` to 10;
+    the parameters must be bit-equal.  Prints save and restore seconds and
+    bytes; the checkpoint directory is deleted."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    ckpt_dir = os.path.join(ROOT, "build", "lm_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log = []
+    argv = ["--arch", "olmo-1b", "--device", str(device)]
+    out = {}
+    try:
+        with patched(train, get_config=lambda a: get_config(a).with_(
+                n_layers=TRAIN_LAYERS), CheckpointManager=timed_checkpoints(log)):
+            for name, extra in (
+                    ("straight", ["--steps", "10"]),
+                    ("first", ["--steps", "5", "--ckpt-dir", ckpt_dir,
+                               "--ckpt-every", "5"]),
+                    ("resumed", ["--steps", "10", "--ckpt-dir", ckpt_dir,
+                                 "--resume"])):
+                sync(device)
+                t = time.perf_counter()
+                model, opt = train.main(argv + extra)
+                sync(device)
+                out[name] = (time.perf_counter() - t, int(opt.step),
+                             {n: p.detach().cpu() for n, p in
+                              model.named_parameters()})
+                del model, opt
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a, b = out["straight"][2], out["resumed"][2]
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    if out["resumed"][1] != 10 or differ:
+        worst = max((float((a[n] - b[n]).abs().max()), n) for n in differ) \
+            if differ else None
+        raise AssertionError(f"lm train resume: step {out['resumed'][1]}, "
+                             f"{len(differ)} parameters differ from the "
+                             f"straight run (largest {worst})")
+    print(f"   olmo-1b {TRAIN_LAYERS} of {get_config('olmo-1b').n_layers} "
+          f"layers: 10 straight steps "
+          f"({out['straight'][0]:.3f} s) == 5 steps + checkpoint "
+          f"({out['first'][0]:.3f} s) + --resume to 10 "
+          f"({out['resumed'][0]:.3f} s): all {len(a)} parameters bit-equal "
+          f"({smi})", flush=True)
+    for kind, step, secs, size in log:
+        print(f"   checkpoint {kind}" + (f" step {step}" if step else "")
+              + f": {secs:.3f} s" + (f", {size} bytes ({size / 2 ** 30:.3f}"
+                                     f" GiB, {size / secs / 2 ** 30:.3f} "
+                                     f"GiB/s)" if size else ""), flush=True)
+
+
+def check_lm_train_placement(smi, device="cuda"):
+    """deepseek-moe-16b at full width cut to ``TRAIN_LAYERS`` layers,
+    ``launch.train.main(PLACEMENT_ARGV)``: every step finite, each step's
+    ``expert_load`` (layers, experts) summing to T * top_k per layer; at a
+    deployment the loss of that step's batch before and after the
+    relocation agrees within ``PLACEMENT_TOL`` and the weights, router
+    columns and moments of every MoE layer moved by the relocation."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    rec = StepRecorder(device)
+    relocate = train.relocate_experts
+    checks, govs = [], []
+
+    def checked(model, opt_state, rel):
+        _, _, batch = rec.last
+        names = [f"layers.{i}.moe.{k}" for i in range(len(model.layers))
+                 for k in train.MOVED]
+        params = dict(model.named_parameters())
+        before = {(w, n): t[n].detach().clone() for n in names
+                  for w, t in (("p", params), ("m", opt_state.m),
+                               ("v", opt_state.v))}
+        with torch.no_grad():
+            loss0 = float(model.loss(batch)[0])
+        relocate(model, opt_state, rel)
+        with torch.no_grad():
+            loss1 = float(model.loss(batch)[0])
+        inv = torch.as_tensor(np.argsort(rel), device=model.device)
+        moved = all(torch.equal(
+            {"p": params, "m": opt_state.m, "v": opt_state.v}[w][n],
+            old.index_select(-1 if n.endswith("router") else -3, inv))
+            for (w, n), old in before.items())
+        checks.append((len(rec.seconds) - 1, loss0, loss1, moved))
+
+    class Governor(train.ExpertPlacementGovernor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            govs.append(self)
+
+    reset_peak(device)
+    t = time.perf_counter()
+    with patched(train, make_train_step=rec, relocate_experts=checked,
+                 ExpertPlacementGovernor=Governor,
+                 get_config=lambda a: get_config(a).with_(
+                     n_layers=TRAIN_LAYERS)):
+        model, opt_state = train.main(PLACEMENT_ARGV + ["--device",
+                                                        str(device)])
+    secs = time.perf_counter() - t
+    cfg, gov = model.cfg, govs[0]
+    rec.check_finite("lm train moe placement")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, m in enumerate(rec.metrics):
+        load = m["expert_load"]
+        if tuple(load.shape) != (cfg.n_layers, cfg.n_experts) or not \
+                np.allclose(load.sum(-1).numpy(), tokens * cfg.top_k,
+                            rtol=1e-5):
+            raise AssertionError(f"moe placement step {i}: expert_load "
+                                 f"{tuple(load.shape)} sums "
+                                 f"{load.sum(-1).tolist()}")
+    how = "at the deployments of the run"
+    if not checks:
+        # No deployment after the first step (the first plan is adopted
+        # without moving weights, as in the reference): relocate to the
+        # governor's placement here, through the same path.
+        checked(model, opt_state, np.asarray(gov.placement.perm))
+        how = ("no deployment after the first step; on a relocation to "
+               "the governor's placement after the run")
+    for step, loss0, loss1, moved in checks:
+        if abs(loss1 - loss0) > PLACEMENT_TOL * abs(loss0) or not moved:
+            raise AssertionError(f"moe placement at step {step}: loss "
+                                 f"{loss0} -> {loss1}, moved {moved}")
+    print(f"   {cfg.name} {cfg.n_layers} of "
+          f"{get_config('deepseek-moe-16b').n_layers} layers, "
+          f"{sum(p.numel() for p in model.parameters())} params, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, {gov.n_groups} groups: "
+          f"{len(rec.seconds)} steps in {secs:.3f} s, median "
+          f"{1e3 * sorted(rec.seconds)[len(rec.seconds) // 2]:.3f} ms/step, "
+          f"every step finite, expert_load ({cfg.n_layers}, "
+          f"{cfg.n_experts}) summing to {tokens * cfg.top_k} per layer; "
+          f"governor replans {gov.replans}, deployments {gov.deployments}, "
+          f"false positives {gov.false_positives}; {peak_line(device)}",
+          flush=True)
+    for step, loss0, loss1, moved in checks:
+        print(f"   relocation ({how}) at step {step}: loss {loss0:.7f} -> "
+              f"{loss1:.7f} (|diff| / loss {abs(loss1 - loss0) / loss0:.3e}, "
+              f"gate {PLACEMENT_TOL}); weights, router columns, m and v of "
+              f"every MoE layer moved: {moved} ({smi})", flush=True)
+
+
+def check_lm_training(smi, device="cuda"):
+    """The four LM training phases with the CEP kernels' launch counters
+    zeroed just before and read just after: the training paths launch
+    none of them."""
+    import functools
+
+    return run_lm_phases(smi, tuple(
+        (path, functools.partial(check, device=device)) for path, check in (
+            ("lm train", check_lm_train),
+            ("lm train consistency", check_lm_train_consistency),
+            ("lm train resume", check_lm_train_resume),
+            ("lm train moe placement", check_lm_train_placement))))
 
 
 def bench_run(path, superchunk, chunks, backend=None):
@@ -2472,18 +3069,20 @@ def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
 
 
 def report_profile(prof, wall, n_chunks, what, top, forbid_scans=True,
-                   unit="chunks"):
+                   unit="chunks", ranges=()):
     """Prints a profiled stretch's device-busy share of the wall, the ops
     with the most device self time and the join-family kernels named;
     fails if a device-wide scan (an M*B-cell scan) shows up on a fleet
-    path (``forbid_scans``)."""
+    path (``forbid_scans``).  ``ranges`` names ``record_function`` ranges,
+    whose device rows repeat their kernels' time: each is printed apart.
+    Returns the device-busy seconds."""
     import torch
 
     # Device-side rows only (kernels, copies): the op-level rows repeat
-    # their kernels' device time.
+    # their kernels' device time, and so do user ranges.
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     named = sorted(k for k in ("packed_kernel", "join_kernel",
                                "rowcount_kernel", "select_kernel")
@@ -2513,6 +3112,14 @@ def report_profile(prof, wall, n_chunks, what, top, forbid_scans=True,
         print(f"   DeviceScan kernels (one-row cumsums): "
               f"{sum(e.self_device_time_total for e in scans) / 1e3:.2f} ms "
               f"over {sum(e.count for e in scans)} calls")
+    for e in prof.key_averages():
+        if e.key in ranges and e.device_type == \
+                torch.autograd.DeviceType.CUDA:
+            print(f"   range {e.key}: device {e.device_time_total / 1e3:.2f} "
+                  f"ms over {e.count} calls = "
+                  f"{100 * e.device_time_total / 1e6 / busy:.1f}% of device "
+                  f"busy time")
+    return busy
 
 
 def check_oracle(device, plan="order"):
@@ -2669,6 +3276,7 @@ def main() -> int:
     done("scenarios", t)
 
     launches.update(check_lm_paths(smi))
+    launches.update(check_lm_training(smi))
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(

@@ -1,1 +1,2 @@
-"""Data pipelines of the port: the CEP stream generators."""
+"""Data pipelines of the port: the CEP stream generators and the
+synthetic LM batches."""

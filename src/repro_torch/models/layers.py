@@ -283,7 +283,11 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def embed(tokens, p, cfg: ModelConfig):
-    return p["tok"][tokens.long()].to(cfg.adtype)
+    # F.embedding, not p["tok"][tokens]: the same rows forward, but its
+    # backward sums a token's rows in a fixed order, where indexing's
+    # accumulating backward adds them atomically (run-to-run bit
+    # differences in the gradient on a multi-threaded CPU).
+    return F.embedding(tokens.long(), p["tok"]).to(cfg.adtype)
 
 
 def unembed(x, p, cfg: ModelConfig):

@@ -30,17 +30,27 @@ Family specifics
                 ``min(S, T)`` positions), and on ``attn_window``'s ring in
                 ``decode_step``, as in the reference.
 
-Rematerialisation, layer unrolling, abstract parameters and logical axes
-are training and dry-run concerns of the reference, not ported here.
+Each layer body of ``forward`` (for the hybrid, the shared attention call
+and the SSM layer together) runs under ``remat``, the reference's
+``_remat``: ``"none"`` as is, ``"full"`` under
+``torch.utils.checkpoint`` (nothing saved; the backward recomputes the
+body), ``"dots"`` under selective checkpointing that saves the weight
+products (``aten.mm`` / ``addmm``: the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest, the
+batched attention and expert products included.  Layer unrolling,
+abstract parameters and logical axes are dry-run and sharding concerns
+of the reference, not ported here.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.engine import resolve_device
 from .config import ModelConfig
@@ -88,6 +98,25 @@ def cache_to_torch(cache, device="cuda") -> Cache:
 
     return Cache(kv=conv(cache.kv, KVCache), ssm=conv(cache.ssm, SSMState),
                  index=torch.as_tensor(np.array(cache.index), device=device))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(mode)
 
 
 # ---------------------------------------------------------------------------
@@ -138,15 +167,19 @@ class Model(ParamTree):
     Parameters are made on ``device`` (CUDA unless the caller asks for the
     CPU; without a GPU, CUDA raises) and start at zero: fill them with
     ``init(generator)`` (random, the reference's scales) or
-    ``params.load_params(model, tree)`` (a reference pytree).
+    ``params.load_params(model, tree)`` (a reference pytree).  ``remat``
+    ("none", "full" or "dots") is what ``forward`` keeps for the backward
+    of each layer body, with the reference's default.
     """
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", remat: str = "full"):
+        _remat(None, remat)  # rejects an unknown mode here
         dev = resolve_device(device)
         root = param_defs(cfg)
         del root["layers"]  # one ParamTree per layer, below
         super().__init__(root, cfg.pdtype, dev)
         self.cfg = cfg
+        self.remat = remat
         self.layers = nn.ModuleList(
             ParamTree(layer_defs(cfg), cfg.pdtype, dev)
             for _ in range(cfg.n_layers))
@@ -221,25 +254,35 @@ class Model(ParamTree):
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
 
         if cfg.family in ("dense", "moe", "vlm", "audio"):
-            auxs, loads = [], []
-            for lp in self.layers:
+            def body(x, lp):
                 x, _, aux, load = self._attn_block(
                     x, lp, positions, prefix_len=prefix)
+                return x, aux, load
+            body = _remat(body, self.remat)
+            auxs, loads = [], []
+            for lp in self.layers:
+                x, aux, load = body(x, lp)
                 auxs.append(zero if aux is None else aux)
                 loads.append(load)
             metrics = {"aux_loss": torch.stack(auxs).sum()}
             if cfg.family == "moe":
                 metrics["expert_load"] = torch.stack(loads)  # (L, E)
         elif cfg.family == "ssm":
+            def body(x, lp):
+                return self._ssm_layer(x, lp)[0]
+            body = _remat(body, self.remat)
             for lp in self.layers:
-                x, _ = self._ssm_layer(x, lp)
+                x = body(x, lp)
             metrics = {"aux_loss": zero}
         elif cfg.family == "hybrid":
-            for i, lp in enumerate(self.layers):
-                if i % cfg.attn_every == 0:
+            def body(x, lp, with_attn):
+                if with_attn:
                     x, _, _, _ = self._attn_block(x, self.shared_attn,
                                                   positions)
-                x, _ = self._ssm_layer(x, lp)
+                return self._ssm_layer(x, lp)[0]
+            body = _remat(body, self.remat)
+            for i, lp in enumerate(self.layers):
+                x = body(x, lp, i % cfg.attn_every == 0)
             metrics = {"aux_loss": zero}
         else:
             raise ValueError(cfg.family)

@@ -11,8 +11,9 @@ single structure we derive:
   (``init_params``), with the reference's scales (its samples differ:
   ``jax.random`` is another generator);
 * ``load_params``, which carries a reference parameter pytree (layer
-  leaves stacked ``(L, ...)``) into a model, and ``count_params`` /
-  ``param_bytes``.
+  leaves stacked ``(L, ...)``) into a model, its inverse
+  ``params_to_tree``, ``opt_state_from_tree`` (a reference ``AdamWState``
+  into the port's), and ``count_params`` / ``param_bytes``.
 """
 
 from __future__ import annotations
@@ -112,6 +113,42 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                 raise ValueError(d.init)
 
 
+def _tree_key(name: str):
+    """A parameter name -> (its path in the reference's tree, its layer
+    index or None): ``layers.3.attn.wq`` -> (("layers", "attn", "wq"),
+    3)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def _named_leaves(model: nn.Module, tree):
+    """``{parameter name: numpy array}`` read from a reference tree (leaves
+    under ``"layers"`` stacked ``(L, ...)``), shapes checked against the
+    parameters; every leaf of ``tree`` must map to a parameter and every
+    parameter to a leaf."""
+    stacked, out = {}, {}
+    for name, p in model.named_parameters():
+        key, layer = _tree_key(name)
+        if key not in stacked:
+            node = tree
+            for k in key:
+                node = node[k]
+            stacked[key] = np.asarray(node)
+        src = stacked[key] if layer is None else stacked[key][layer]
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: tree leaf {src.shape} != parameter "
+                             f"{tuple(p.shape)}")
+        out[name] = src
+    want = set(_tree_paths(tree))
+    if set(stacked) != want:
+        raise ValueError(f"tree leaves without a parameter: "
+                         f"{sorted(want - set(stacked))}; parameters without "
+                         f"a leaf: {sorted(set(stacked) - want)}")
+    return out
+
+
 @torch.no_grad()
 def load_params(model: nn.Module, tree) -> None:
     """Carry a reference parameter pytree into ``model`` in place.
@@ -122,34 +159,56 @@ def load_params(model: nn.Module, tree) -> None:
     ``tree["layers"]["attn"]["wq"][i]``; every other name is its path.
     Every leaf of ``tree`` must be consumed and every parameter filled.
     """
-    stacked = {}
-    used = set()
+    leaves = _named_leaves(model, tree)
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            key = (parts[0],) + tuple(parts[2:])
-            if key not in stacked:
-                node = tree
-                for k in key:
-                    node = node[k]
-                stacked[key] = np.asarray(node)
-            src = stacked[key][int(parts[1])]
-            used.add(key)
+        p.copy_(torch.from_numpy(np.array(leaves[name])).to(p.dtype))
+
+
+def params_to_tree(model: nn.Module, values=None) -> dict:
+    """The inverse of ``load_params``: the reference's nested tree of numpy
+    arrays, layer leaves stacked ``(L, ...)``.  ``values`` (``{parameter
+    name: tensor}``, e.g. an optimizer moment) replaces the parameters'
+    own values."""
+    groups = {}
+    for name, p in model.named_parameters():
+        key, layer = _tree_key(name)
+        x = (p if values is None else values[name]).detach().cpu()
+        groups.setdefault(key, []).append((layer, x))
+    tree = {}
+    for key, items in groups.items():
+        if items[0][0] is None:
+            arr = items[0][1].numpy()
         else:
-            node = tree
-            for k in parts:
-                node = node[k]
-            src = np.asarray(node)
-            used.add(tuple(parts))
-        if tuple(src.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: tree leaf {src.shape} != parameter "
-                             f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(src)).to(p.dtype))
-    want = set(_tree_paths(tree))
-    if used != want:
-        raise ValueError(f"tree leaves without a parameter: "
-                         f"{sorted(want - used)}; parameters without a "
-                         f"leaf: {sorted(used - want)}")
+            arr = torch.stack([x for _, x in sorted(items, key=lambda i: i[0])
+                               ]).numpy()
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = arr
+    return tree
+
+
+def opt_state_from_tree(model: nn.Module, state):
+    """A reference ``AdamWState`` (JAX arrays or numpy; ``m``, ``v`` and
+    ``master`` in the parameters' tree layout) -> the port's, keyed by
+    ``model``'s parameter names, on the model's device."""
+    from ..train.optimizer import AdamWState
+
+    dev = next(model.parameters()).device
+
+    def conv(tree):
+        if isinstance(tree, tuple) and tree == ():
+            return ()
+        return {n: torch.from_numpy(np.array(a, np.float32)).to(dev)
+                for n, a in _named_leaves(model, tree).items()}
+
+    if not (isinstance(state.ef, tuple) and state.ef == ()):
+        raise NotImplementedError("error-feedback residuals are not carried "
+                                  "across (ROADMAP Queue 1 item 6(c))")
+    return AdamWState(
+        step=torch.as_tensor(np.array(state.step), dtype=torch.int32,
+                             device=dev),
+        m=conv(state.m), v=conv(state.v), master=conv(state.master), ef=())
 
 
 def _tree_paths(tree, prefix=()):

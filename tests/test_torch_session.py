@@ -306,7 +306,9 @@ def test_port_imports_neither_jax_nor_repro():
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     modules = [
         "repro_torch", "repro_torch.adaptive",
-        "repro_torch.adaptive.batching", "repro_torch.cep",
+        "repro_torch.adaptive.batching", "repro_torch.adaptive.placement",
+        "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+        "repro_torch.cep",
         "repro_torch.cep.config",
         "repro_torch.cep.dsl", "repro_torch.cep.rulebook",
         "repro_torch.cep.session",
@@ -328,6 +330,7 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.configs.stablelm_12b", "repro_torch.configs.yi_34b",
         "repro_torch.configs.zamba2_1p2b",
         "repro_torch.data", "repro_torch.data.cep_streams",
+        "repro_torch.data.lm_data",
         "repro_torch.data.scenarios", "repro_torch.data.scenarios.base",
         "repro_torch.data.scenarios.citibike",
         "repro_torch.data.scenarios.flowsense",
@@ -336,12 +339,15 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.kernels", "repro_torch.kernels.ops",
         "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
         "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.launch.train",
         "repro_torch.models", "repro_torch.models.config",
         "repro_torch.models.layers", "repro_torch.models.model",
         "repro_torch.models.moe", "repro_torch.models.params",
         "repro_torch.models.ssm",
         "repro_torch.serving", "repro_torch.serving.engine",
         "repro_torch.serving.scheduler",
+        "repro_torch.train", "repro_torch.train.optimizer",
+        "repro_torch.train.train_step",
     ]
     code = (
         "import importlib, sys\n"
