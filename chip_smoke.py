@@ -179,11 +179,41 @@ Phases (each prints its seconds; any failure exits non-zero):
               unrelocated model's within 1e-5 and every MoE layer's
               weights, router columns, m and v moved by the relocation;
               prints governor replans and deployments.
+24. lm train f64 — "lm train consistency"'s cut, weights and batch with
+              the model in float64 (``float64_model``: the phase patches
+              the dtypes, not the package): logits and per-leaf gradients
+              card vs CPU within ``F64_LOGIT_TOL`` / ``F64_GRAD_TOL``, the
+              f32 gaps scaled by the formats' rounding;
+25. lm train moe resume — deepseek-moe-16b at 2 layers through
+              ``launch.train``: 2 straight steps against 1 step + a
+              checkpoint + ``--resume`` to 2, parameters bit-equal (the
+              MoE combine and dispatch add nothing atomically);
+26. dist collective — a one-rank default group (``cpu:gloo,cuda:nccl``,
+              TCP store on 127.0.0.1) and ``launch.mesh.make_host_mesh(1,
+              1)``: ``compressed_psum_tree`` on the reference test's leaves
+              and a 2048 x 2048 one, card (NCCL) vs CPU (gloo) bit for
+              bit, the reference's bounds, int8 payloads only;
+27. dist compressed train — ``launch.train``'s OLMo-1B at full size
+              through ``make_train_step(compressed_grads=True, mesh=...)``
+              with error feedback, 6 steps: finite, every parameter
+              moved, residuals within 2 scales; ms per step beside "lm
+              train"'s, the all-reduce's CUDA-event ms, int8 bytes per
+              step, peak memory;
+28. dist compressed consistency — one compressed step of the 2-layer
+              olmo on the card and on the CPU from the card's gradients:
+              residuals bit-equal, parameters within ``DIST_PARAM_TOL``;
+              each device's own step printed beside it;
+29. dist moe ep — deepseek-moe-16b at 2 layers: the loss's forward and
+              backward with every MoE layer on the expert-parallel path
+              (n_ep = 1 over NCCL) against the dense path, bit for bit.
               The CEP kernels' launch counters are zeroed before each LM
-              phase and read after it: 0 launches, recorded as the "lm
-              serving", "lm families", "lm train", "lm train
-              consistency", "lm train resume" and "lm train moe
-              placement" entries of ``launches_by_path``.
+              and distribution phase and read after it: 0 launches,
+              recorded as the "lm serving", "lm families", "lm train",
+              "lm train consistency", "lm train f64", "lm train resume",
+              "lm train moe placement", "lm train moe resume", "dist
+              collective", "dist compressed train", "dist compressed
+              consistency" and "dist moe ep" entries of
+              ``launches_by_path``.
 
 Launch counts: the counters are zeroed just before each path runs and
 read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
@@ -353,12 +383,37 @@ TRAIN_UPDATE_TOL = 5e-2
 TRAIN_MB_TOL = 2e-5
 # The MoE placement phase: deepseek-moe-16b, 12 steps with the governor;
 # the loss of a deployment's batch before and after the relocation
-# compares within PLACEMENT_TOL relative (the combine's index_add_ sums a
-# token's expert outputs in another order once the experts move).
+# compares within PLACEMENT_TOL relative: the combine adds a token's
+# expert outputs in ascending physical expert order (the reference's),
+# and a relocation changes that order.
 PLACEMENT_ARGV = ["--arch", "deepseek-moe-16b", "--adaptive-placement",
                   "--steps", "12", "--batch", str(TRAIN_BATCH), "--seq",
                   str(TRAIN_SEQ)]
 PLACEMENT_TOL = 1e-5
+
+# "lm train moe resume": deepseek-moe-16b at TRAIN_LAYERS layers through
+# launch.train's --resume: MOE_RESUME_STEPS straight steps against half of
+# them, one checkpoint (17.8 GiB of parameters, m and v: ~40 s to
+# snapshot and write) and a restart, which skips its own final write.
+MOE_RESUME_STEPS = 2
+# "lm train f64": the f32 gaps of "lm train consistency" (logits 2.8e-4
+# of the largest, gradients up to 2.3e-3 of a leaf's largest, PERF.md)
+# times the f64/f32 rounding ratio (2**-29, ~1.9e-9) are ~5e-13 and
+# ~4e-12; the gates leave three orders of magnitude above those and stay
+# five below the f32 gaps, so a port fault of f32 size cannot pass.
+F64_LOGIT_TOL = 1e-9
+F64_GRAD_TOL = 1e-8
+# The distribution phases over a one-rank NCCL group: the collective's
+# extra leaf, the compressed OLMo-1B steps, and the parameters' gate of
+# one compressed step card vs CPU from the same gradients: the
+# compression is bit-equal by construction, and AdamW's elementwise
+# update may differ by an ulp where the card's pow or sqrt rounds
+# otherwise (parameters of magnitude < 8: an ulp < 1e-6).
+DIST_LEAF = 2048
+DIST_STEPS = 6
+DIST_PARAM_TOL = 1e-6
+# Numbers a later phase prints beside its own ("lm train"'s ms/step).
+RESULTS = {}
 
 SOURCE = "src/repro_torch/kernels/csrc/window_join.cu"
 REPLACES = {
@@ -2573,6 +2628,7 @@ def check_lm_train(smi, device="cuda"):
     n = sum(p.numel() for p in model.parameters())
     tokens = TRAIN_BATCH * TRAIN_SEQ
     med = statistics.median(rec.seconds[1:])
+    RESULTS["lm train ms"] = med * 1e3
     flops = 6 * n * tokens
     print(f"   {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab}, {n} params, f32, remat none; {smi}): "
@@ -2738,13 +2794,18 @@ def check_lm_train_consistency(smi, device="cuda"):
           f"(gate {TRAIN_MB_TOL}) ({smi})", flush=True)
 
 
-def timed_checkpoints(log):
+def timed_checkpoints(log, final_save=True):
     """A ``CheckpointManager`` class that appends (what, step, seconds,
     bytes) to ``log`` for each write (in the writer thread too), snapshot
-    and restore."""
+    and restore; without ``final_save`` its synchronous ``save`` (a run's
+    last checkpoint) writes nothing."""
     from repro_torch.checkpoint import CheckpointManager
 
     class Timed(CheckpointManager):
+        def save(self, *a, **kw):
+            if final_save:
+                super().save(*a, **kw)
+
         def _write(self, step, *rest):
             t = time.perf_counter()
             super()._write(step, *rest)
@@ -2769,11 +2830,15 @@ def timed_checkpoints(log):
     return Timed
 
 
-def check_lm_train_resume(smi, device="cuda"):
-    """olmo-1b at ``TRAIN_LAYERS`` layers: 10 straight steps against 5
-    steps with a checkpoint every 5 and a restart with ``--resume`` to 10;
-    the parameters must be bit-equal.  Prints save and restore seconds and
-    bytes; the checkpoint directory is deleted."""
+def check_lm_train_resume(smi, device="cuda", arch="olmo-1b", steps=10,
+                          every=None, resumed_save=True):
+    """``arch`` at ``TRAIN_LAYERS`` layers through ``launch.train``:
+    ``steps`` straight steps against ``steps // 2`` steps with a
+    checkpoint (asynchronous every ``every`` steps, by default at the
+    half, and the final one) and a restart with ``--resume`` to
+    ``steps`` (which writes its own final checkpoint only with
+    ``resumed_save``); the parameters must be bit-equal.  Prints save and
+    restore seconds and bytes; the checkpoint directory is deleted."""
     import shutil
 
     import torch
@@ -2784,17 +2849,20 @@ def check_lm_train_resume(smi, device="cuda"):
     ckpt_dir = os.path.join(ROOT, "build", "lm_train_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     log = []
-    argv = ["--arch", "olmo-1b", "--device", str(device)]
+    argv = ["--arch", arch, "--device", str(device)]
+    half = str(steps // 2)
     out = {}
     try:
-        with patched(train, get_config=lambda a: get_config(a).with_(
-                n_layers=TRAIN_LAYERS), CheckpointManager=timed_checkpoints(log)):
-            for name, extra in (
-                    ("straight", ["--steps", "10"]),
-                    ("first", ["--steps", "5", "--ckpt-dir", ckpt_dir,
-                               "--ckpt-every", "5"]),
-                    ("resumed", ["--steps", "10", "--ckpt-dir", ckpt_dir,
-                                 "--resume"])):
+        for name, extra in (
+                ("straight", ["--steps", str(steps)]),
+                ("first", ["--steps", half, "--ckpt-dir", ckpt_dir,
+                           "--ckpt-every", str(every or half)]),
+                ("resumed", ["--steps", str(steps), "--ckpt-dir",
+                             ckpt_dir, "--resume"])):
+            manager = timed_checkpoints(log, resumed_save
+                                        or name != "resumed")
+            with patched(train, get_config=lambda a: get_config(a).with_(
+                    n_layers=TRAIN_LAYERS), CheckpointManager=manager):
                 sync(device)
                 t = time.perf_counter()
                 model, opt = train.main(argv + extra)
@@ -2807,16 +2875,16 @@ def check_lm_train_resume(smi, device="cuda"):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     a, b = out["straight"][2], out["resumed"][2]
     differ = [n for n in a if not torch.equal(a[n], b[n])]
-    if out["resumed"][1] != 10 or differ:
+    if out["resumed"][1] != steps or differ:
         worst = max((float((a[n] - b[n]).abs().max()), n) for n in differ) \
             if differ else None
-        raise AssertionError(f"lm train resume: step {out['resumed'][1]}, "
+        raise AssertionError(f"{arch} resume: step {out['resumed'][1]}, "
                              f"{len(differ)} parameters differ from the "
                              f"straight run (largest {worst})")
-    print(f"   olmo-1b {TRAIN_LAYERS} of {get_config('olmo-1b').n_layers} "
-          f"layers: 10 straight steps "
-          f"({out['straight'][0]:.3f} s) == 5 steps + checkpoint "
-          f"({out['first'][0]:.3f} s) + --resume to 10 "
+    print(f"   {arch} {TRAIN_LAYERS} of {get_config(arch).n_layers} "
+          f"layers: {steps} straight steps "
+          f"({out['straight'][0]:.3f} s) == {half} steps + checkpoint "
+          f"({out['first'][0]:.3f} s) + --resume to {steps} "
           f"({out['resumed'][0]:.3f} s): all {len(a)} parameters bit-equal "
           f"({smi})", flush=True)
     for kind, step, secs, size in log:
@@ -2918,8 +2986,94 @@ def check_lm_train_placement(smi, device="cuda"):
               f"every MoE layer moved: {moved} ({smi})", flush=True)
 
 
+class _F64Torch:
+    """``torch`` with ``float32`` read as ``float64``: the f64 probe's
+    stand-in for the model modules' own f32 constants."""
+
+    def __getattr__(self, name):
+        import torch
+
+        return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+@contextlib.contextmanager
+def float64_model():
+    """The LM stack in float64 inside the block: the configs' parameter and
+    activation dtypes, ``Tensor.float`` and the model modules' float32
+    constants all read float64 (the package itself is unchanged)."""
+    import torch
+
+    from repro_torch.models import config, layers
+    from repro_torch.models import model as model_mod
+
+    f64 = property(lambda self: torch.float64)
+
+    def double(self, *a, **kw):
+        return self.double()
+
+    with patched(config.ModelConfig, pdtype=f64, adtype=f64), \
+            patched(torch.Tensor, float=double), \
+            patched(layers, torch=_F64Torch()), \
+            patched(model_mod, torch=_F64Torch()):
+        yield
+
+
+def check_lm_train_f64(smi, device="cuda"):
+    """The card-vs-CPU training gap in float64 ("lm train consistency"'s
+    cut, weights and batch): olmo-1b at full width, ``TRAIN_LAYERS``
+    layers, batch (TRAIN_CHECK_B, TRAIN_CHECK_S), the forward's logits and
+    the per-leaf gradients on the card against the CPU.  If the card's
+    path is right, the f64 gap is the f32 gap scaled by the ratio of the
+    two formats' rounding (2**-52 / 2**-23, ~5e-10): gates
+    ``F64_LOGIT_TOL`` and ``F64_GRAD_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import batch_to
+
+    cfg = get_config("olmo-1b").with_(n_layers=TRAIN_LAYERS)
+    dev = torch.device(device)
+    batch = make_batch(cfg, DataConfig(batch=TRAIN_CHECK_B,
+                                       seq=TRAIN_CHECK_S), 0)
+    with float64_model():
+        card = Model(cfg, dev, remat="none").init(
+            torch.Generator(device=dev).manual_seed(0))
+        cpu = Model(cfg, "cpu", remat="none")
+        cpu.load_state_dict(card.state_dict())
+        if any(p.dtype != torch.float64 for p in cpu.parameters()):
+            raise AssertionError("f64 probe: parameters are not float64")
+        with torch.no_grad():
+            want = cpu.forward(batch_to(batch, "cpu"))[0]
+            got = card.forward(batch_to(batch, dev))[0]
+        if want.dtype != torch.float64 or got.dtype != torch.float64:
+            raise AssertionError(f"f64 probe: logits {want.dtype}")
+        logit_gap = float((got.cpu() - want).abs().max() / want.abs().max())
+        del want, got
+        t = time.perf_counter()
+        cpu_loss, want = port_grads(cpu, batch_to(batch, "cpu"))
+        cpu_s = time.perf_counter() - t
+        card_loss, got = port_grads(card, batch_to(batch, dev))
+        ratios = leaf_ratios(got, want)
+    worst = max(ratios, key=ratios.get)
+    print(f"   olmo-1b {TRAIN_LAYERS} of 16 layers in float64, batch "
+          f"{TRAIN_CHECK_B} x {TRAIN_CHECK_S}: loss card {card_loss!r} vs "
+          f"CPU {cpu_loss!r}; logits card vs CPU max |diff| / max |CPU| "
+          f"{logit_gap:.3e} (gate {F64_LOGIT_TOL}); per-leaf gradients "
+          f"max |diff| / max |CPU grad| <= {ratios[worst]:.3e} ({worst}; "
+          f"gate {F64_GRAD_TOL}; f32 in \"lm train consistency\" above); "
+          f"CPU backward {cpu_s:.3f} s; largest ratios "
+          + ", ".join(f"{n} {ratios[n]:.3e}" for n in sorted(
+              ratios, key=ratios.get, reverse=True)[:6]) + f" ({smi})",
+          flush=True)
+    if logit_gap > F64_LOGIT_TOL or ratios[worst] > F64_GRAD_TOL:
+        raise AssertionError(f"lm train f64: logits {logit_gap}, gradient "
+                             f"of {worst} {ratios[worst]}")
+
+
 def check_lm_training(smi, device="cuda"):
-    """The four LM training phases with the CEP kernels' launch counters
+    """The LM training phases with the CEP kernels' launch counters
     zeroed just before and read just after: the training paths launch
     none of them."""
     import functools
@@ -2928,8 +3082,384 @@ def check_lm_training(smi, device="cuda"):
         (path, functools.partial(check, device=device)) for path, check in (
             ("lm train", check_lm_train),
             ("lm train consistency", check_lm_train_consistency),
+            ("lm train f64", check_lm_train_f64),
             ("lm train resume", check_lm_train_resume),
-            ("lm train moe placement", check_lm_train_placement))))
+            ("lm train moe placement", check_lm_train_placement),
+            ("lm train moe resume", functools.partial(
+                check_lm_train_resume, arch="deepseek-moe-16b",
+                steps=MOE_RESUME_STEPS, every=MOE_RESUME_STEPS,
+                resumed_save=False)))))
+
+
+# ---------------------------------------------------------------------------
+# Distribution on one host: a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording_wire(log):
+    """Appends (collective, dtype, bytes) to ``log`` for every tensor
+    handed to ``all_to_all_single`` or ``all_gather_into_tensor`` (the
+    payload: their input) inside the block."""
+    import torch.distributed as dist
+
+    real = {n: getattr(dist, n)
+            for n in ("all_to_all_single", "all_gather_into_tensor")}
+
+    def recording(name):
+        def call(out, inp, *a, **kw):
+            log.append((name, inp.dtype, inp.numel() * inp.element_size()))
+            return real[name](out, inp, *a, **kw)
+        return call
+
+    with patched(dist, **{n: recording(n) for n in real}):
+        yield
+
+
+def dist_inputs():
+    """The reference test's leaves (``rng(0)``: w (64, 32), b (128,)) and
+    a 2048 x 2048 one, f32 on the CPU."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    g = {"w": rng.normal(size=(64, 32)), "b": rng.normal(size=(128,)),
+         "big": rng.normal(size=(DIST_LEAF, DIST_LEAF))}
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in g.items()}
+
+
+def check_dist_collective(smi, mesh):
+    """``compressed_psum_tree`` on ``dist_inputs`` through the card (NCCL)
+    and the CPU (gloo) side of one group: means and residuals bit-equal;
+    the reference's bounds (mean within 3 quantization steps of the
+    input, residual within 2); only int8 handed to the all_to_all and the
+    all-gather; the card's all-reduce of the 2048 x 2048 leaf timed with
+    CUDA events."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.collectives import compressed_psum_tree
+
+    g = dist_inputs()
+    wire = []
+    with recording_wire(wire):
+        cpu = compressed_psum_tree(g, (), mesh)
+        card = compressed_psum_tree({k: v.cuda() for k, v in g.items()}, (),
+                                    mesh)
+    for what, want, got in (("mean", cpu[0], card[0]),
+                            ("residual", cpu[1], card[1])):
+        for k in g:
+            a, b = got[k].cpu().numpy(), want[k].numpy()
+            if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+                raise AssertionError(f"dist collective: {what} {k} card vs "
+                                     f"CPU: {int((a != b).sum())} differ")
+    for k, x in g.items():
+        scale = float(x.abs().max()) / 127.0
+        err = float((card[0][k].cpu() - x).abs().max())
+        res = float(card[1][k].abs().max())
+        if err > 3 * scale or res > 2 * scale:
+            raise AssertionError(f"dist collective {k}: error {err}, "
+                                 f"residual {res}, scale {scale}")
+    dtypes = {str(dt) for _, dt, _ in wire}
+    if dtypes != {"torch.int8"}:
+        raise AssertionError(f"dist collective: payload dtypes {dtypes}")
+    big = g["big"].cuda()
+    compressed_psum_tree({"big": big}, (), mesh)
+    ms = []
+    for _ in range(5):
+        b = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        b.record()
+        compressed_psum_tree({"big": big}, (), mesh)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(b.elapsed_time(e))
+    n = big.numel()
+    print(f"   {len(g)} leaves ({sum(x.numel() for x in g.values())} "
+          f"elements): means and residuals card == CPU bit for bit; within "
+          f"the reference's bounds; payload {sorted(dtypes)}, "
+          f"{sum(b for _, _, b in wire)} bytes over both runs "
+          f"({len(wire)} calls); the {DIST_LEAF} x {DIST_LEAF} leaf on the "
+          f"card: {statistics.median(ms):.3f} ms median of 5 (CUDA events; "
+          f"min {min(ms):.3f}), int8 payload {2 * n} bytes vs {8 * n} for "
+          f"an f32 ring all-reduce ({smi})", flush=True)
+
+
+def check_dist_compressed_train(smi, mesh, device="cuda"):
+    """``launch.train``'s OLMo-1B at full width and depth (``TRAIN_ARGV``'s
+    batch) through ``make_train_step(compressed_grads=True, mesh=mesh)``
+    with ``AdamWConfig(error_feedback=True)``, ``DIST_STEPS`` steps: every
+    step finite, every parameter moved, and after the first step every
+    leaf's residual within 2 of its first scale.  Prints ms per step (the
+    first apart) beside "lm train"'s, the compressed all-reduce's device
+    ms (CUDA events), the int8 bytes per step beside an f32 ring's, and
+    peak memory."""
+    import functools
+
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import train
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig
+
+    rec = StepRecorder(device)
+    events, wire, worst = [], [], {}
+    real_by_leaf = ts.compressed_grads_by_leaf
+    real_allreduce = collectives._compressed_allreduce
+
+    def timed(*a, **kw):
+        b = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        b.record()
+        out = real_by_leaf(*a, **kw)
+        e.record()
+        events.append((b, e))
+        return out
+
+    def gated(x, ef, group, n_shards):
+        out = real_allreduce(x, ef, group, n_shards)
+        if len(rec.seconds) == 0:  # the first step (reported apart)
+            scale1 = float((x.float().reshape(-1) + ef.reshape(-1)).abs()
+                           .max()) / 127.0 + 1e-12
+            worst[tuple(x.shape)] = max(
+                worst.get(tuple(x.shape), 0.0),
+                float(out[1].abs().max()) / scale1)
+        return out
+
+    def make(model, opt_cfg, **kw):
+        return rec(model, opt_cfg, compressed_grads=True, mesh=mesh)
+
+    argv = ["--arch", "olmo-1b", "--steps", str(DIST_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--device",
+            str(device)]
+    reset_peak(device)
+    t = time.perf_counter()
+    with patched(train, make_train_step=make, AdamWConfig=functools.partial(
+            AdamWConfig, error_feedback=True)), \
+            patched(ts, compressed_grads_by_leaf=timed), \
+            patched(collectives, _compressed_allreduce=gated), \
+            recording_wire(wire):
+        model, opt_state = train.main(argv)
+    secs = time.perf_counter() - t
+    memory = peak_line(device)
+    rec.check_finite("dist compressed train")
+    rec.check_changed(model, "dist compressed train")
+    if opt_state.ef == () or max(worst.values()) > 2.0:
+        raise AssertionError(f"dist compressed train: residual / scale "
+                             f"{max(worst.values(), default=None)}")
+    dtypes = {str(dt) for _, dt, _ in wire}
+    if dtypes != {"torch.int8"}:
+        raise AssertionError(f"dist compressed train: payload {dtypes}")
+    n = sum(p.numel() for p in model.parameters())
+    per_step = sum(b for _, _, b in wire) / DIST_STEPS
+    ar_ms = [b.elapsed_time(e) for b, e in events]
+    med = statistics.median(rec.seconds[1:])
+    base = RESULTS.get("lm train ms")
+    print(f"   olmo-1b ({n} params, f32, remat none, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, error feedback) on a (data 1, model 1) NCCL mesh: "
+          f"{DIST_STEPS} compressed steps in {secs:.3f} s, every step "
+          f"finite and every parameter moved; first step "
+          f"{rec.seconds[0] * 1e3:.3f} ms, median of the rest "
+          f"{med * 1e3:.3f} ms/step (min {min(rec.seconds[1:]) * 1e3:.3f}, "
+          f"max {max(rec.seconds[1:]) * 1e3:.3f})"
+          + (f" vs \"lm train\" {base:.3f} ms/step ({med * 1e3 / base:.3f}x)"
+             if base else "")
+          + f"; compressed all-reduce {statistics.median(ar_ms[1:]):.3f} ms "
+          f"median per step (CUDA events; first {ar_ms[0]:.3f}); "
+          f"payload {sorted(dtypes)} {per_step:.0f} bytes per step "
+          f"({per_step / n:.4f} B/param) vs {8 * n} for an f32 ring "
+          f"all-reduce (8 B/param); residual / first scale <= "
+          f"{max(worst.values()):.4f} over {len(worst)} leaves (gate 2); "
+          f"{memory} ({smi})", flush=True)
+
+
+def check_dist_compressed_consistency(smi, mesh, device="cuda"):
+    """olmo-1b at full width, ``TRAIN_LAYERS`` layers, batch
+    (TRAIN_CHECK_B, TRAIN_CHECK_S), one compressed step with error
+    feedback on the card and one on the CPU (gloo) side of the group from
+    the card's gradients: residuals bit-equal and parameters within
+    ``DIST_PARAM_TOL``.  The step from each device's own gradients is
+    printed beside it, ungated: the int8 grid is a step function of the
+    gradient, and the two devices' gradients differ by up to
+    ``TRAIN_GRAD_TOL`` of a leaf's largest ("lm train consistency"), so
+    elements near a grid boundary land on neighbouring levels."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.models import Model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    cfg = get_config("olmo-1b").with_(n_layers=TRAIN_LAYERS)
+    dev = torch.device(device)
+    card = Model(cfg, dev, remat="none").init(
+        torch.Generator(device=dev).manual_seed(0))
+    start = {n: p.detach().cpu().clone() for n, p in card.named_parameters()}
+    batch = make_batch(cfg, DataConfig(batch=TRAIN_CHECK_B,
+                                       seq=TRAIN_CHECK_S), 0)
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=20,
+                          error_feedback=True)
+    real, kept = ts._grads, {}
+
+    def keep(model, b):
+        out = real(model, b)
+        kept.update(out[2])
+        return out
+
+    def card_grads(model, b):
+        with torch.no_grad():
+            loss, metrics = model.loss(b)
+        return loss, metrics, {n: None if g is None else g.cpu()
+                               for n, g in kept.items()}
+
+    runs = {}
+    for name, model, grads in (("card", card, keep),
+                               ("cpu from card", None, card_grads),
+                               ("cpu", None, real)):
+        if model is None:
+            model = Model(cfg, "cpu", remat="none")
+            model.load_state_dict(start)
+        opt = init_state(opt_cfg, dict(model.named_parameters()))
+        with patched(ts, _grads=grads):
+            t = time.perf_counter()
+            model, opt, m = ts.make_train_step(
+                model, opt_cfg, compressed_grads=True, mesh=mesh)(
+                    model, opt, ts.batch_to(batch, model.device))
+            sync(model.device)
+            secs = time.perf_counter() - t
+        runs[name] = ({n: p.detach().cpu() for n, p in
+                       model.named_parameters()},
+                      {n: e.cpu() for n, e in opt.ef.items()},
+                      float(m["ce"]), float(m["grad_norm"]), secs)
+        del model, opt
+    (p_card, ef_card, ce, gn, card_s) = runs["card"]
+    (p_cpu, ef_cpu, _, gn_cpu, cpu_s) = runs["cpu from card"]
+    ef_same = sum(torch.equal(ef_card[n], ef_cpu[n]) for n in ef_card)
+    p_diff = max(float((p_card[n] - p_cpu[n]).abs().max()) for n in p_card)
+    p_same = sum(torch.equal(p_card[n], p_cpu[n]) for n in p_card)
+    own, own_ef = runs["cpu"][0], runs["cpu"][1]
+    num = den = 0.0
+    moved = 0
+    for n, p in own.items():
+        d = p_card[n] - p
+        num += float(d.double().square().sum())
+        den += float((p - start[n]).double().square().sum())
+        moved += int((d.abs() > 1e-6).sum())
+    ef_rel = max(float((ef_card[n] - own_ef[n]).abs().max())
+                 / max(float(own_ef[n].abs().max()), 1e-30) for n in own_ef)
+    print(f"   olmo-1b {TRAIN_LAYERS} of 16 layers, batch {TRAIN_CHECK_B} x "
+          f"{TRAIN_CHECK_S}, one compressed step with error feedback: ce "
+          f"{ce:.6f}, grad_norm card {gn:.6e} vs CPU from the card's "
+          f"gradients {gn_cpu:.6e}; from the same gradients: residuals "
+          f"bit-equal {ef_same} of {len(ef_card)}, parameters bit-equal "
+          f"{p_same} of {len(p_card)}, max |diff| {p_diff:.3e} (gate "
+          f"{DIST_PARAM_TOL}); each device from its own gradients "
+          f"(ungated): updates ||card - CPU|| / ||CPU|| "
+          f"{(num / den) ** 0.5:.3e}, {moved} elements beyond 1e-6, "
+          f"residuals max |diff| / max |CPU| {ef_rel:.3e}; card "
+          f"{card_s:.3f} s, CPU {cpu_s:.3f} s ({smi})", flush=True)
+    if ef_same != len(ef_card) or p_diff > DIST_PARAM_TOL:
+        raise AssertionError(f"dist compressed consistency: residuals "
+                             f"bit-equal {ef_same} of {len(ef_card)}, "
+                             f"parameters {p_diff}")
+
+
+def check_dist_moe_ep(smi, mesh, device="cuda"):
+    """deepseek-moe-16b at full width (64 experts, top-6), ``TRAIN_LAYERS``
+    layers, batch (TRAIN_BATCH, TRAIN_SEQ): the loss and its gradients
+    with every MoE layer on the expert-parallel path over the one-rank
+    NCCL mesh (``_moe_ffn_ep`` at n_ep = 1: all_to_alls, gathers and
+    gradient sums over one rank) against the dense path, on the card:
+    loss, aux, expert loads and every gradient bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.models import Model
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import _grads, batch_to
+
+    cfg = get_config("deepseek-moe-16b").with_(n_layers=TRAIN_LAYERS)
+    dev = torch.device(device)
+    model = Model(cfg, dev, remat="none").init(
+        torch.Generator(device=dev).manual_seed(0))
+    batch = batch_to(make_batch(cfg, DataConfig(batch=TRAIN_BATCH,
+                                                seq=TRAIN_SEQ), 0), dev)
+    calls = []
+
+    def ep(x, p, cfg_):
+        calls.append(1)
+        return moe._moe_ffn_ep_global(x, p, cfg_, mesh)
+
+    out = {}
+    for name, fn in (("dense", model_mod.moe_ffn), ("ep", ep)):
+        with patched(model_mod, moe_ffn=fn):
+            sync(dev)
+            t = time.perf_counter()
+            loss, metrics, grads = _grads(model, batch)
+            sync(dev)
+            out[name] = (loss, metrics, grads, time.perf_counter() - t)
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"dist moe ep: {len(calls)} EP calls")
+    (l0, m0, g0, s0), (l1, m1, g1, s1) = out["dense"], out["ep"]
+    same = [n for n in g0 if (g0[n] is None and g1[n] is None)
+            or (g0[n] is not None and torch.equal(g0[n], g1[n]))]
+    ok = (torch.equal(l0, l1) and torch.equal(m0["aux_loss"], m1["aux_loss"])
+          and torch.equal(m0["expert_load"], m1["expert_load"])
+          and len(same) == len(g0))
+    print(f"   deepseek-moe-16b {TRAIN_LAYERS} of 28 layers "
+          f"({sum(p.numel() for p in model.parameters())} params, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: expert-parallel (n_ep = 1, NCCL) vs dense on the "
+          f"card: loss {float(l1)!r} vs {float(l0)!r}, aux and expert loads "
+          f"equal: {ok}; gradients bit-equal {len(same)} of {len(g0)}; "
+          f"forward + backward {s1:.3f} s vs {s0:.3f} s ({smi})", flush=True)
+    if not ok:
+        raise AssertionError("dist moe ep: the expert-parallel path differs "
+                             "from the dense path: "
+                             f"{sorted(set(g0) - set(same))[:6]}")
+
+
+def check_distribution(smi):
+    """The distribution phases over a one-rank default group (gloo for CPU
+    tensors, NCCL for CUDA ones; TCP store on 127.0.0.1) and a (1, 1)
+    mesh, with the CEP kernels' launch counters zeroed just before and
+    read just after each (the paths launch none).  The group is destroyed
+    after."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        print(f"   torch.distributed: NCCL {torch.cuda.nccl.version()}, "
+              f"mesh {mesh.shape} on {mesh.device}", flush=True)
+        return run_lm_phases(smi, tuple(
+            (path, functools.partial(check, mesh=mesh)) for path, check in (
+                ("dist collective", check_dist_collective),
+                ("dist compressed train", check_dist_compressed_train),
+                ("dist compressed consistency",
+                 check_dist_compressed_consistency),
+                ("dist moe ep", check_dist_moe_ep))))
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def bench_run(path, superchunk, chunks, backend=None):
@@ -3277,6 +3807,7 @@ def main() -> int:
 
     launches.update(check_lm_paths(smi))
     launches.update(check_lm_training(smi))
+    launches.update(check_distribution(smi))
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(

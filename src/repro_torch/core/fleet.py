@@ -45,6 +45,7 @@ from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import ops as kops
 from .adaptation import make_planner
 from .compat import warn_legacy
 from .decision import DecisionPolicy, InvariantPolicy
@@ -186,12 +187,13 @@ def clear_trace_memo() -> None:
 
 def _memo_config(cfg: EngineConfig) -> EngineConfig:
     """``cfg`` as a memo key: the device with its index ("cuda" and
-    "cuda:0" are one key) and the backend it resolves to (None is the
-    CUDA kernels on a CUDA device, the plain versions elsewhere)."""
+    "cuda:0" are one key) and the backend it resolves to (None is
+    ``kernels.ops.get_backend``'s: by default the CUDA kernels on a CUDA
+    device, the plain versions elsewhere)."""
     dev = canonical_device(cfg.device)
     return dataclasses.replace(
         cfg, device=str(dev),
-        backend=cfg.backend or ("cuda" if dev.type == "cuda" else "ref"))
+        backend=cfg.backend or kops.get_backend(dev))
 
 
 class FleetEngine:

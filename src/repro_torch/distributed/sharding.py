@@ -1,13 +1,32 @@
-"""The CEP fleet's device mesh: one rule splits the K-partition axis.
+"""Logical-axis sharding rules, and the CEP fleet's device mesh.
 
-The port of the CEP half of ``repro.distributed.sharding``.  Every leaf
-of the CEP data plane leads with the K-partition axis (stacked ring
-buffers, statistics rings, plan rows, lowered invariants, per-partition
-counters), and partitions are independent streams, so the fleet maps onto
-a 1-D device mesh with ONE rule: split K over the ``cep`` axis into D
-contiguous blocks, replicate the rest (the shared chunk clock, a
-rulebook's rule rows and lattice routing), run the step once per block
-and concatenate the K-led outputs.  No collective is needed.
+The port of ``repro.distributed.sharding``, in two halves.
+
+**Logical-axis rules** (the LM stack).  Model code names tensor dims by
+*logical* axes ("batch", "heads", "ff", "experts", ...).  A ``MeshRules``
+table maps logical names to physical mesh axes; ``resolve`` checks
+divisibility and falls back to replication on any axis that does not
+divide evenly, recording each fallback (the reference's strings, letter
+for letter).  ``DEFAULT_RULES`` is the reference's production layout.
+A mesh is anything with a ``shape`` mapping of axis name -> size: the
+port's ``launch.mesh.HostMesh``, or a stand-in in tests.
+
+Decision: the port runs per-rank local tensors with explicit collectives
+(``distributed/collectives.py``, the expert-parallel MoE), the
+reference's ``shard_map`` style.  ``sharding`` / ``logical_sharding``
+turn a resolved spec into DTensor placements (``Shard(i)`` or
+``Replicate()`` per mesh dim, in the mesh's axis order) for callers that
+want them; ``logical_constraint`` returns ``x`` unchanged, as the
+reference does without rules: eager code has no compiler to constrain.
+
+**The CEP fleet's mesh.**  Every leaf of the CEP data plane leads with
+the K-partition axis (stacked ring buffers, statistics rings, plan rows,
+lowered invariants, per-partition counters), and partitions are
+independent streams, so the fleet maps onto a 1-D device mesh with ONE
+rule: split K over the ``cep`` axis into D contiguous blocks, replicate
+the rest (the shared chunk clock, a rulebook's rule rows and lattice
+routing), run the step once per block and concatenate the K-led outputs.
+No collective is needed.
 
 ``shard_map`` is that rule for a torch function: its specs give, per
 argument, ``fleet_pspec()`` (split the leading axis; a NamedTuple
@@ -19,18 +38,183 @@ D > 1 waits for a host with more than one GPU (ROADMAP.md, Queue 1):
 ``resolve_cep_mesh`` raises ``NotImplementedError`` for it, after the
 device-count check, since no run here can check a multi-GPU split (the
 blocks would also have to be placed on, and gathered from, the mesh's
-devices).  The logical-axis rules of the LM stack (``MeshRules``,
-``use_rules``, ``logical_constraint``) come with the LM slices.
+devices).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..core.engine import canonical_device
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+
+
+DEFAULT_RULES: Dict[str, AxisVal] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "act_embed": None,
+    "embed": "data",        # FSDP shard of parameter d_model dims
+    "opt_embed": "data",    # ZeRO-1: optimizer-state d_model dims
+    "heads": "model",
+    "kv_heads": "model",
+    "qkv_dim": None,
+    "ff": "model",
+    "experts": "model",
+    "expert_cap": None,
+    "vocab": "model",
+    "cache_seq": "model",   # decode KV caches: split-T (flash-decoding)
+    "layers": None,
+    "conv": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "ssm_heads": "model",
+    "frontend": None,
+    # CEP fleet: the leading K-partition axis of every data-plane tensor.
+    "cep_partitions": "cep",
+}
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh axis name, a tuple of names, or
+    None (replicated) -- ``jax.sharding.PartitionSpec`` without jax."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass
+class MeshRules:
+    mesh: object            # anything with ``shape``: {axis name: size}
+    rules: Dict[str, AxisVal]
+    fallbacks: List[str] = dataclasses.field(default_factory=list)
+
+    def axis_size(self, phys: AxisVal) -> int:
+        if phys is None or self.mesh is None:
+            return 1
+        if isinstance(phys, str):
+            phys = (phys,)
+        size = 1
+        for a in phys:
+            size *= self.mesh.shape.get(a, 1)
+        return size
+
+    def resolve(self, shape: Sequence[int],
+                logical: Sequence[Optional[str]],
+                tag: str = "") -> PartitionSpec:
+        """Logical names -> PartitionSpec with divisibility fallback."""
+        if len(shape) != len(logical):
+            raise ValueError(f"{tag}: shape {tuple(shape)} has "
+                             f"{len(shape)} dims, axes {tuple(logical)}")
+        out = []
+        used: set = set()
+        for dim, name in zip(shape, logical):
+            if name is None:
+                out.append(None)
+                continue
+            phys = self.rules.get(name)
+            if phys is None:
+                out.append(None)
+                continue
+            phys_t = (phys,) if isinstance(phys, str) else tuple(phys)
+            # Drop mesh axes missing from the mesh (e.g. "pod" on the
+            # single-pod mesh) and axes already used by an earlier dim of
+            # this tensor (a mesh axis may appear only once per spec).
+            dropped_dup = [a for a in phys_t
+                           if self.mesh is not None
+                           and a in self.mesh.shape and a in used]
+            phys_t = tuple(a for a in phys_t
+                           if (self.mesh is None or a in self.mesh.shape)
+                           and a not in used)
+            if dropped_dup:
+                self.fallbacks.append(
+                    f"{tag}: dim {dim} ({name}) axis {dropped_dup} already "
+                    "used by an earlier dim -> replicated")
+            size = self.axis_size(phys_t)
+            if size <= 1:
+                out.append(None)
+            elif dim % size == 0:
+                used.update(phys_t)
+                out.append(phys_t[0] if len(phys_t) == 1 else phys_t)
+            else:
+                self.fallbacks.append(
+                    f"{tag}: dim {dim} ({name}) not divisible by "
+                    f"{phys_t} ({size}) -> replicated")
+                out.append(None)
+        return PartitionSpec(*out)
+
+    def sharding(self, shape, logical, tag: str = "") -> tuple:
+        """The resolved spec as DTensor placements, one per mesh axis in
+        the mesh's order: ``Shard(i)`` where tensor dim i is split over
+        that axis, else ``Replicate()``."""
+        if self.mesh is None:
+            raise ValueError("sharding requires an active mesh")
+        return placements(self.mesh, self.resolve(shape, logical, tag))
+
+
+def placements(mesh, spec: PartitionSpec) -> tuple:
+    """``spec`` over ``mesh`` as DTensor placements (one per mesh axis)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim_of = {}
+    for i, part in enumerate(spec):
+        for a in ((part,) if isinstance(part, str) else (part or ())):
+            dim_of[a] = i
+    return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
+                 for a in mesh.shape)
+
+
+_local = threading.local()
+
+
+def current_rules() -> Optional[MeshRules]:
+    return getattr(_local, "rules", None)
+
+
+def set_rules(rules: Optional[MeshRules]) -> None:
+    _local.rules = rules
+
+
+@contextlib.contextmanager
+def use_rules(mesh, overrides: Optional[Dict[str, AxisVal]] = None):
+    """Activate a mesh + logical-rule table for this thread."""
+    table = dict(DEFAULT_RULES)
+    if overrides:
+        table.update(overrides)
+    prev = current_rules()
+    set_rules(MeshRules(mesh=mesh, rules=table))
+    try:
+        yield current_rules()
+    finally:
+        set_rules(prev)
+
+
+def logical_constraint(x, *logical: Optional[str]):
+    """The reference's ``with_sharding_constraint`` by logical names: eager
+    tensors are already laid out per rank, so ``x`` comes back as it is."""
+    return x
+
+
+def logical_sharding(shape, logical, tag: str = "") -> Optional[tuple]:
+    """DTensor placements of a tensor under the active rules, or None
+    without a mesh."""
+    r = current_rules()
+    if r is None or r.mesh is None:
+        return None
+    return r.sharding(shape, logical, tag)
+
+
+# ---------------------------------------------------------------------------
+# CEP fleet mesh layer
+# ---------------------------------------------------------------------------
 
 CEP_AXIS = "cep"
 

@@ -7,6 +7,12 @@
 * ``backend="ref"`` runs the plain version on either device (the
   comparison run of ``chip_smoke.py``).
 * ``backend="cuda"`` on a CPU tensor raises.
+* Without a per-call ``backend``, ``get_backend`` decides: the name
+  ``set_backend`` forced, else ``default_backend``: the
+  ``REPRO_KERNEL_BACKEND`` environment override ("ref" | "cuda",
+  validated as in the reference), else "cuda" for a CUDA tensor and
+  "ref" for a CPU one.  An override of "cuda" on a CPU tensor raises as
+  the explicit one does: nothing gives way silently.
 
 The engines call these through one ``backend`` field of their config, so
 the whole data plane switches with one flag.  A join step runs
@@ -18,13 +24,14 @@ CUDA kernels take a leading fleet axis K (``(K, C, M)``); the plain
 versions take it or not.  Every join and count takes its thresholds as
 ``(C,)`` (shared by the batch) or ``(K, C)`` (one row per batch element,
 the rulebook's rules).
-The JAX package's ``REPRO_KERNEL_BACKEND`` environment override keeps its
-JAX meaning and is not read here.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
+
+import torch
 
 from . import ref as _ref
 from . import window_join as _wj
@@ -34,10 +41,44 @@ GRAPH_LAUNCHES = _wj.GRAPH_LAUNCHES
 reset_launch_counts = _wj.reset_launch_counts
 
 
+BACKENDS = ("ref", "cuda")
+_BACKEND = None
+
+
+def default_backend(x=None) -> str:
+    """The environment's backend if ``REPRO_KERNEL_BACKEND`` is set, else
+    the device's: "cuda" for a CUDA tensor or device ``x`` ("cuda"
+    whenever torch sees a GPU if ``x`` is None), "ref" otherwise."""
+    env = os.environ.get("REPRO_KERNEL_BACKEND")
+    if env:
+        if env not in BACKENDS:
+            raise ValueError(f"REPRO_KERNEL_BACKEND={env!r} is not one of "
+                             "'ref' | 'cuda'")
+        return env
+    if x is None:
+        return "cuda" if torch.cuda.is_available() else "ref"
+    dev = x.device if torch.is_tensor(x) else torch.device(x)
+    return "cuda" if dev.type == "cuda" else "ref"
+
+
+def set_backend(name: Optional[str]) -> None:
+    """Force a kernel backend for every call without its own: 'ref' |
+    'cuda', or None to go back to ``default_backend``."""
+    global _BACKEND
+    if name not in BACKENDS + (None,):
+        raise ValueError(f"unknown kernel backend {name!r}")
+    _BACKEND = name
+
+
+def get_backend(x=None) -> str:
+    return _BACKEND or default_backend(x)
+
+
 def resolve_backend(backend: Optional[str], x) -> str:
-    """The backend a call on tensor ``x`` runs: explicit, else by device."""
-    be = backend or ("cuda" if x.is_cuda else "ref")
-    if be not in ("ref", "cuda"):
+    """The backend a call on tensor ``x`` runs: explicit, else
+    ``get_backend(x)``."""
+    be = backend or get_backend(x)
+    if be not in BACKENDS:
         raise ValueError(f"unknown kernel backend {be!r} "
                          "(expected 'ref' or 'cuda')")
     if be == "cuda" and not x.is_cuda:

@@ -248,6 +248,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype,
     )
 
 
+def prefill_kv_cache(cfg: ModelConfig, x_k, x_v, positions) -> KVCache:
+    """Build a cache directly from a prefill pass's K/V tensors."""
+    B = x_k.shape[0]
+    return KVCache(k=x_k, v=x_v,
+                   pos=torch.broadcast_to(positions, (B, x_k.shape[1])))
+
+
 # ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------

@@ -37,9 +37,14 @@ and the SSM layer together) runs under ``remat``, the reference's
 body), ``"dots"`` under selective checkpointing that saves the weight
 products (``aten.mm`` / ``addmm``: the reference's
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest, the
-batched attention and expert products included.  Layer unrolling,
-abstract parameters and logical axes are dry-run and sharding concerns
-of the reference, not ported here.
+batched attention and expert products included.
+
+``axes()`` and ``abstract()`` give each parameter's logical axes and a
+``meta`` tensor of its shape and dtype, keyed by parameter name (the
+reference's trees through ``load_params``' mapping, less the stacked
+``layers`` axis); ``Model(cfg, device="meta")`` allocates nothing.  The
+reference's ``unroll_layers`` serves its dry-run's cost analysis, which
+is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from .layers import (
     unembed,
 )
 from .moe import moe_defs, moe_ffn
-from .params import ParamTree, init_params
+from .params import ParamTree, _tree_key, init_params, logical_axes
 from .ssm import SSMState, init_ssm_state, ssm_block, ssm_defs
 
 
@@ -194,6 +199,25 @@ class Model(ParamTree):
     def init(self, generator: torch.Generator) -> "Model":
         init_params(self, generator)
         return self
+
+    def axes(self) -> Dict[str, tuple]:
+        """Each parameter's logical axes, by name: the reference's
+        ``axes()`` leaf at the name's tree path, less the stacked
+        ``layers`` axis for a layer's own parameters."""
+        tree = logical_axes(self.param_defs())
+        out = {}
+        for name, _ in self.named_parameters():
+            key, layer = _tree_key(name)
+            node = tree
+            for k in key:
+                node = node[k]
+            out[name] = node if layer is None else node[1:]
+        return out
+
+    def abstract(self) -> Dict[str, torch.Tensor]:
+        """Each parameter as a ``meta`` tensor (shape and dtype), by name."""
+        return {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for n, p in self.named_parameters()}
 
     # ------------------------------------------------------------------
     # Layer bodies

@@ -10,6 +10,9 @@ single structure we derive:
 * random initialisation from an explicit ``torch.Generator``
   (``init_params``), with the reference's scales (its samples differ:
   ``jax.random`` is another generator);
+* logical-axis trees (``logical_axes``) for ``distributed.sharding``'s
+  rules, and abstract trees of ``meta`` tensors (``abstract_params``:
+  shapes and dtypes, nothing allocated), both in the defs' nested layout;
 * ``load_params``, which carries a reference parameter pytree (layer
   leaves stacked ``(L, ...)``) into a model, its inverse
   ``params_to_tree``, ``opt_state_from_tree`` (a reference ``AdamWState``
@@ -50,6 +53,21 @@ def _leaves(defs):
         return
     for v in defs.values():
         yield from _leaves(v)
+
+
+def _map_defs(fn, defs):
+    if is_def(defs):
+        return fn(defs)
+    return {k: _map_defs(fn, v) for k, v in defs.items()}
+
+
+def logical_axes(defs):
+    return _map_defs(lambda d: d.axes, defs)
+
+
+def abstract_params(defs, dtype):
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                           device="meta"), defs)
 
 
 def param_bytes(defs, dtype) -> int:
@@ -189,9 +207,10 @@ def params_to_tree(model: nn.Module, values=None) -> dict:
 
 
 def opt_state_from_tree(model: nn.Module, state):
-    """A reference ``AdamWState`` (JAX arrays or numpy; ``m``, ``v`` and
-    ``master`` in the parameters' tree layout) -> the port's, keyed by
-    ``model``'s parameter names, on the model's device."""
+    """A reference ``AdamWState`` (JAX arrays or numpy; ``m``, ``v``,
+    ``master`` and the error-feedback residuals ``ef`` in the parameters'
+    tree layout, or ``()``) -> the port's, keyed by ``model``'s parameter
+    names, on the model's device."""
     from ..train.optimizer import AdamWState
 
     dev = next(model.parameters()).device
@@ -202,13 +221,11 @@ def opt_state_from_tree(model: nn.Module, state):
         return {n: torch.from_numpy(np.array(a, np.float32)).to(dev)
                 for n, a in _named_leaves(model, tree).items()}
 
-    if not (isinstance(state.ef, tuple) and state.ef == ()):
-        raise NotImplementedError("error-feedback residuals are not carried "
-                                  "across (ROADMAP Queue 1 item 6(c))")
     return AdamWState(
         step=torch.as_tensor(np.array(state.step), dtype=torch.int32,
                              device=dev),
-        m=conv(state.m), v=conv(state.v), master=conv(state.master), ef=())
+        m=conv(state.m), v=conv(state.v), master=conv(state.master),
+        ef=conv(state.ef))
 
 
 def _tree_paths(tree, prefix=()):

@@ -8,8 +8,9 @@ parameters and gradients (for a ``Model``: ``dict(model.named_parameters())``):
   training: updates accumulate in fp32, params round to bf16);
 * global-norm gradient clipping;
 * linear-warmup + cosine-decay schedule;
-* optional error-feedback residuals (allocated only, as in the
-  reference: the compressed all-reduce that uses them is not ported).
+* optional error-feedback residuals for the compressed gradient
+  all-reduce (``distributed.collectives``): they live next to the
+  moments, so checkpoints capture them.
 
 The arithmetic is the reference's, operation for operation in f32 (not
 ``torch.optim.AdamW``, whose decoupled decay and bias correction round
@@ -135,3 +136,14 @@ def apply_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
 
     new_state = state._replace(step=step)
     return params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def state_logical_axes(param_axes, cfg: AdamWConfig, low_prec: bool):
+    """Optimizer-state logical axes mirror the parameter axes."""
+    return AdamWState(
+        step=(),
+        m=param_axes,
+        v=param_axes,
+        master=param_axes if (cfg.use_master and low_prec) else (),
+        ef=param_axes if cfg.error_feedback else (),
+    )

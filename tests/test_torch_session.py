@@ -335,10 +335,12 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.data.scenarios.citibike",
         "repro_torch.data.scenarios.flowsense",
         "repro_torch.data.scenarios.fraud",
-        "repro_torch.distributed", "repro_torch.distributed.sharding",
+        "repro_torch.distributed", "repro_torch.distributed.collectives",
+        "repro_torch.distributed.sharding",
         "repro_torch.kernels", "repro_torch.kernels.ops",
         "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
-        "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.launch", "repro_torch.launch.mesh",
+        "repro_torch.launch.serve", "repro_torch.launch.shapes",
         "repro_torch.launch.train",
         "repro_torch.models", "repro_torch.models.config",
         "repro_torch.models.layers", "repro_torch.models.model",

@@ -306,6 +306,26 @@ def test_gradients_repeat_bit_for_bit_on_threads():
             assert (g is None and r[n] is None) or torch.equal(g, r[n]), n
 
 
+def test_moe_gradients_repeat_bit_for_bit_on_threads():
+    """The same for deepseek-moe: the combine sums each token's expert
+    outputs in order and the dispatch gathers through a permutation, so
+    nothing adds atomically (``index_add_`` and the backward of indexing
+    by token did)."""
+    cfg = get_smoke("deepseek-moe-16b")
+    model = Model(cfg, device="cpu", remat="none").init(
+        torch.Generator().manual_seed(0))
+    batch = batch_to(make_batch(cfg, DataConfig(batch=8, seq=128), 0), "cpu")
+    before = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        runs = [port_grads(model, batch)[1] for _ in range(4)]
+    finally:
+        torch.set_num_threads(before)
+    for n, g in runs[0].items():
+        for r in runs[1:]:
+            assert (g is None and r[n] is None) or torch.equal(g, r[n]), n
+
+
 def test_moe_train_returns_expert_loads():
     cfg = get_smoke("deepseek-moe-16b")
     model = Model(cfg, device="cpu", remat="none").init(
@@ -346,12 +366,34 @@ def test_microbatch_grad_accumulation_matches(archs):
     assert abs(float(m["loss_out"]) - float(jm["loss_out"])) <= 1e-5
 
 
+class _ModelAxisOnly:
+    """A mesh without a "data" axis (only ``shape`` is read)."""
+
+    shape = {"model": 2}
+
+
 def test_compressed_grads_over_a_mesh_is_not_ported():
-    model = Model(get_smoke("olmo-1b"), device="cpu")
-    make_train_step(model, AdamWConfig(), compressed_grads=True)  # no-op
-    with pytest.raises(NotImplementedError, match="6\\(c\\)"):
-        make_train_step(model, AdamWConfig(), compressed_grads=True,
-                        mesh=object())
+    """``compressed_grads`` compresses over a mesh's "data" axis only (the
+    reference's condition; the compressed all-reduce itself is
+    tests/test_torch_collectives.py): without a mesh, or over a mesh with
+    no "data" axis, the step is the uncompressed one bit for bit and the
+    residuals stay as they were."""
+    cfg = get_smoke("olmo-1b")
+    batch = batch_to(make_batch(cfg, DataConfig(batch=2, seq=16), 0), "cpu")
+    ocfg = AdamWConfig(**OPT, error_feedback=True)
+    finals = []
+    for kw in ({}, dict(compressed_grads=True),
+               dict(compressed_grads=True, mesh=_ModelAxisOnly())):
+        model = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        opt = init_state(ocfg, dict(model.named_parameters()))
+        ef = opt.ef
+        model, opt, _ = make_train_step(model, ocfg, **kw)(model, opt, batch)
+        assert opt.ef is ef and all(not e.any() for e in ef.values())
+        finals.append(params_to_tree(model))
+    for f in finals[1:]:
+        for (k, a), (_, b) in zip(leaf_items(f), leaf_items(finals[0])):
+            assert np.array_equal(a, b), k
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +421,22 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the GPU)")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_moe_gradients_repeat_bit_for_bit(cuda_device):
+    """Two deepseek-moe backwards of one batch on the card give the same
+    gradients, leaf for leaf, bit for bit (the MoE combine and dispatch
+    add nothing atomically)."""
+    cfg = get_smoke("deepseek-moe-16b")
+    model = Model(cfg, device=cuda_device, remat="none").init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    batch = batch_to(make_batch(cfg, DataConfig(batch=8, seq=128), 0),
+                     cuda_device)
+    runs = [port_grads(model, batch)[1] for _ in range(2)]
+    for n, g in runs[0].items():
+        assert (g is None and runs[1][n] is None) or torch.equal(
+            g, runs[1][n]), n
 
 
 @pytest.mark.gpu
