@@ -45,7 +45,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               window); its integer telemetry and per-partition matches
               must equal the per-chunk kernel run of phase 4 / 7 (itself
               held against the plain versions), and over the stream's
-              first 32 chunks the window run with ``backend="ref"`` (the
+              first 16 chunks the window run with ``backend="ref"`` (the
               plain versions, captured and replayed on the card) must
               equal the kernel window.  Prints events/s beside
               the per-chunk run's, peak memory, graph captures and
@@ -103,7 +103,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               (``repro_torch.core.AdaptiveRunner``) at its §5 setup
               (benchmarks/common.py::run_one): the five pattern sets at
               size 8 (the composite's three branches merged with
-              ``merge_metrics``), 120 traffic chunks, adaptive match
+              ``merge_metrics``), 40 traffic chunks, adaptive match
               capacities, per planner (greedy: order engine; zstream: tree
               engine) under the four policies, with the launch counters
               zeroed just before and read just after; matches must not
@@ -184,7 +184,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               the dtypes, not the package): logits and per-leaf gradients
               card vs CPU within ``F64_LOGIT_TOL`` / ``F64_GRAD_TOL``, the
               f32 gaps scaled by the formats' rounding;
-25. lm train moe resume — deepseek-moe-16b at 2 layers through
+25. lm train moe resume — deepseek-moe-16b at 1 layer through
               ``launch.train``: 2 straight steps against 1 step + a
               checkpoint + ``--resume`` to 2, parameters bit-equal (the
               MoE combine and dispatch add nothing atomically);
@@ -213,7 +213,24 @@ Phases (each prints its seconds; any failure exits non-zero):
               "lm train moe placement", "lm train moe resume", "dist
               collective", "dist compressed train", "dist compressed
               consistency" and "dist moe ep" entries of
-              ``launches_by_path``.
+              ``launches_by_path``;
+30. dryrun  — "dryrun cells": ``repro_torch.launch.dryrun.run_cell``
+              (``meta`` tensors on the host's CPU, H100 terms) for
+              olmo-1b/train_4k, deepseek-moe-16b/train_4k,
+              mamba2-1.3b/long_500k and yi-34b/decode_32k on the
+              single-pod mesh: each record's three terms, ``dominant``
+              and ``fits``; "dryrun anchor": "lm train"'s cell on a (1, 1)
+              mesh shape, ``lower_train_step``'s FLOPs equal to
+              ``FlopCounterMode``'s count over one step on the card,
+              argument + temp bytes within 10% of the step's device peak,
+              the compute term beside the measured ms; and with
+              ``compressed_grads`` the all-to-all + all-gather bytes equal
+              to "dist compressed train"'s int8 wire log per step;
+31. examples — each ``examples/torch_*.py`` at its default size on the
+              card (its output and seconds): the CEP examples launch the
+              packed join and the selection, ``torch_fleet_demo``'s
+              per-tenant oracle check passes; "example <name>" entries
+              of ``launches_by_path``.
 
 Launch counts: the counters are zeroed just before each path runs and
 read just after.  ``LAUNCHES`` counts wrapper calls that launch a kernel;
@@ -230,7 +247,8 @@ holds its ``single_stream`` shape, times and bound.
 
 The survivor selection's record is a JSON line of its own; the line
 before the last is the JSON ``kernels`` record of the four kernels that
-replace TPU kernels; the last line is ``{"ok": true, "device": {...}}``.
+replace TPU kernels and the selection; the last line is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device the script exits with code 1 and prints no result;
 alone, in a directory without the repository, it stops at its first
 import of the port (exit code 1).
@@ -251,6 +269,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -258,10 +277,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 op/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 
 # The FlowSense alert rule (src/repro/data/scenarios/flowsense.py:40-44):
 # temperature spike, no acknowledgement, humidity drop, gas alarm.
@@ -285,8 +300,8 @@ TREE_MAX_ESCALATIONS = 1
 # Chunks per window of the superchunk and serving phases.
 SUPERCHUNK = 8
 # Chunks of the superchunk phases' plain-version window reruns (a prefix
-# of the stream; the tree path's took 145 s over all 64).
-WINDOW_REF_CHUNKS = 32
+# of the stream, two windows; the tree path's took 145 s over all 64).
+WINDOW_REF_CHUNKS = 16
 # --bench times each run's first chunks (graph captures) apart.
 BENCH_SPLIT = 8
 
@@ -303,7 +318,7 @@ HOT_ADD_AT = 32
 # upper one).
 ADAPT_SETS = ("seq", "conj", "neg", "kleene", "composite")
 ADAPT_SIZE = 8
-ADAPT_CHUNKS = 120
+ADAPT_CHUNKS = 40
 ADAPT_POLICIES = {"static": {}, "unconditional": {},
                   "threshold": dict(t=0.4), "invariant": dict(k=1, d=0.0)}
 ADAPT_B_CAP = 128
@@ -354,7 +369,6 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_ARGV = ["--arch", "olmo-1b", "--steps", "20", "--batch",
               str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
 TRAIN_PROFILE_STEPS = 3
-F32_PEAK_FLOPS = 67e12
 # "lm train consistency", "resume" and "moe placement" cut their config
 # to TRAIN_LAYERS layers at full width (at full depth the reference's
 # init leaves olmo's f32 forward ill-conditioned: PERF.md).  The
@@ -391,11 +405,13 @@ PLACEMENT_ARGV = ["--arch", "deepseek-moe-16b", "--adaptive-placement",
                   str(TRAIN_SEQ)]
 PLACEMENT_TOL = 1e-5
 
-# "lm train moe resume": deepseek-moe-16b at TRAIN_LAYERS layers through
-# launch.train's --resume: MOE_RESUME_STEPS straight steps against half of
-# them, one checkpoint (17.8 GiB of parameters, m and v: ~40 s to
-# snapshot and write) and a restart, which skips its own final write.
+# "lm train moe resume": deepseek-moe-16b at MOE_RESUME_LAYERS layers
+# through launch.train's --resume: MOE_RESUME_STEPS straight steps against
+# half of them, one checkpoint (parameters, m and v: 17.8 GiB at two
+# layers, ~40 s to snapshot and write; one layer, an MoE layer like every
+# other, keeps the path) and a restart, which skips its own final write.
 MOE_RESUME_STEPS = 2
+MOE_RESUME_LAYERS = 1
 # "lm train f64": the f32 gaps of "lm train consistency" (logits 2.8e-4
 # of the largest, gradients up to 2.3e-3 of a leaf's largest, PERF.md)
 # times the f64/f32 rounding ratio (2**-29, ~1.9e-9) are ~5e-13 and
@@ -412,6 +428,21 @@ F64_GRAD_TOL = 1e-8
 DIST_LEAF = 2048
 DIST_STEPS = 6
 DIST_PARAM_TOL = 1e-6
+# "dryrun cells": launch.dryrun.run_cell on the single-pod mesh; "dryrun
+# anchor": argument + temp bytes of the lowered "lm train" step against
+# the card's peak over one step, within DRYRUN_MEM_TOL relative.
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
+                ("mamba2-1.3b", "long_500k"), ("yi-34b", "decode_32k"))
+DRYRUN_MEM_TOL = 0.10
+# "examples": each examples/torch_*.py at its default size, with the
+# kernels a CEP example must launch (order plans: the packed join and the
+# survivor selection; no example's pattern has a negation or a Kleene
+# closure, so none runs the row count).
+_CEP_EXAMPLE = ("window_join_packed", "select_survivors")
+EXAMPLES = (("quickstart", _CEP_EXAMPLE), ("fleet_demo", _CEP_EXAMPLE),
+            ("monitored_fleet_demo", _CEP_EXAMPLE),
+            ("adaptive_cep_demo", _CEP_EXAMPLE), ("serve_lm", ()),
+            ("train_lm", ()), ("adaptive_moe_training", ()))
 # Numbers a later phase prints beside its own ("lm train"'s ms/step).
 RESULTS = {}
 
@@ -603,9 +634,12 @@ def cuda_ms(fn, reps=10, inner=5):
 
 def roofline(nbytes, n_ops):
     """(ms, what bounds it): the larger of the bytes over the card's
-    memory rate and the f32 operations over its non-tensor f32 rate."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    memory rate and the f32 operations over its non-tensor f32 rate (the
+    H100 SXM terms of ``repro_torch.launch.dryrun``)."""
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS_F32
+
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = n_ops / PEAK_FLOPS_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -2564,6 +2598,7 @@ def profile_training(model, opt_state, opt_cfg, cfg, dcfg, start, top=8):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.data.lm_data import make_batch
+    from repro_torch.launch.dryrun import HBM_BW
     from repro_torch.train import train_step
     from repro_torch.train.optimizer import apply_update
 
@@ -2598,7 +2633,7 @@ def profile_training(model, opt_state, opt_cfg, cfg, dcfg, start, top=8):
     n_bytes = sum(p.numel() for p in params.values()) * 4 * 7
     print(f"   one apply_update on a step's gradients: "
           f"{begin.elapsed_time(end):.3f} ms (CUDA events); bound "
-          f"{1e3 * n_bytes / PEAK_BYTES_PER_S:.3f} ms (bytes: p, g, m, v "
+          f"{1e3 * n_bytes / HBM_BW:.3f} ms (bytes: p, g, m, v "
           f"read, p, m, v written once in f32)")
 
 
@@ -2614,6 +2649,7 @@ def check_lm_train(smi, device="cuda"):
 
     from repro_torch.data.lm_data import DataConfig
     from repro_torch.launch import train
+    from repro_torch.launch.dryrun import PEAK_FLOPS_F32
 
     rec = StepRecorder(device)
     reset_peak(device)
@@ -2642,9 +2678,9 @@ def check_lm_train(smi, device="cuda"):
           f"max {max(rec.seconds[1:]) * 1e3:.3f}), {tokens / med:.1f} "
           f"tokens/s; model FLOPs 6 N T = {flops:.4e} per step, "
           f"{flops / med / 1e12:.2f} TFLOP/s = "
-          f"{100 * flops / med / F32_PEAK_FLOPS:.1f}% of the "
-          f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s f32 non-tensor peak (NVIDIA "
-          f"H100 SXM data sheet); bound {1e3 * flops / F32_PEAK_FLOPS:.1f} "
+          f"{100 * flops / med / PEAK_FLOPS_F32:.1f}% of the "
+          f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32 non-tensor peak (NVIDIA "
+          f"H100 SXM data sheet); bound {1e3 * flops / PEAK_FLOPS_F32:.1f} "
           f"ms/step; {memory}", flush=True)
     if torch.device(device).type == "cuda":
         profile_training(model, opt_state, rec.opt_cfg, cfg,
@@ -2831,8 +2867,9 @@ def timed_checkpoints(log, final_save=True):
 
 
 def check_lm_train_resume(smi, device="cuda", arch="olmo-1b", steps=10,
-                          every=None, resumed_save=True):
-    """``arch`` at ``TRAIN_LAYERS`` layers through ``launch.train``:
+                          every=None, resumed_save=True,
+                          layers=TRAIN_LAYERS):
+    """``arch`` at ``layers`` layers through ``launch.train``:
     ``steps`` straight steps against ``steps // 2`` steps with a
     checkpoint (asynchronous every ``every`` steps, by default at the
     half, and the final one) and a restart with ``--resume`` to
@@ -2862,7 +2899,7 @@ def check_lm_train_resume(smi, device="cuda", arch="olmo-1b", steps=10,
             manager = timed_checkpoints(log, resumed_save
                                         or name != "resumed")
             with patched(train, get_config=lambda a: get_config(a).with_(
-                    n_layers=TRAIN_LAYERS), CheckpointManager=manager):
+                    n_layers=layers), CheckpointManager=manager):
                 sync(device)
                 t = time.perf_counter()
                 model, opt = train.main(argv + extra)
@@ -2881,7 +2918,7 @@ def check_lm_train_resume(smi, device="cuda", arch="olmo-1b", steps=10,
         raise AssertionError(f"{arch} resume: step {out['resumed'][1]}, "
                              f"{len(differ)} parameters differ from the "
                              f"straight run (largest {worst})")
-    print(f"   {arch} {TRAIN_LAYERS} of {get_config(arch).n_layers} "
+    print(f"   {arch} {layers} of {get_config(arch).n_layers} "
           f"layers: {steps} straight steps "
           f"({out['straight'][0]:.3f} s) == {half} steps + checkpoint "
           f"({out['first'][0]:.3f} s) + --resume to {steps} "
@@ -3088,7 +3125,7 @@ def check_lm_training(smi, device="cuda"):
             ("lm train moe resume", functools.partial(
                 check_lm_train_resume, arch="deepseek-moe-16b",
                 steps=MOE_RESUME_STEPS, every=MOE_RESUME_STEPS,
-                resumed_save=False)))))
+                resumed_save=False, layers=MOE_RESUME_LAYERS)))))
 
 
 # ---------------------------------------------------------------------------
@@ -3253,6 +3290,7 @@ def check_dist_compressed_train(smi, mesh, device="cuda"):
         raise AssertionError(f"dist compressed train: payload {dtypes}")
     n = sum(p.numel() for p in model.parameters())
     per_step = sum(b for _, _, b in wire) / DIST_STEPS
+    RESULTS["dist wire bytes per step"] = per_step
     ar_ms = [b.elapsed_time(e) for b, e in events]
     med = statistics.median(rec.seconds[1:])
     base = RESULTS.get("lm train ms")
@@ -3452,6 +3490,184 @@ def check_distribution(smi):
                 ("dist moe ep", check_dist_moe_ep))))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The dry-run: per-rank accounting on meta tensors, anchored on the card
+# ---------------------------------------------------------------------------
+
+
+def check_dryrun_cells(smi):
+    """``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` (single pod, the
+    host's CPU on ``meta`` tensors): each record's three terms,
+    ``dominant`` and ``fits``."""
+    from repro_torch.launch import dryrun
+
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch}/{shape}: "
+                                 f"{rec.get('error', rec['status'])}")
+        mem = rec["memory"]
+        print(f"   {arch}/{shape} on {rec['n_chips']} H100s (analytic, "
+              f"counted in {rec['t_compile_s']} s): compute "
+              f"{rec['compute_s']:.6f} s, memory {rec['memory_s']:.6f} s, "
+              f"collective {rec['collective_s']:.6f} s -> "
+              f"{rec['dominant']}; FLOPs {rec['hlo_flops']:.4e} per rank, "
+              f"useful {rec['useful_flops_ratio']:.3f}; argument "
+              f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB + temp "
+              f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f} GiB per rank, "
+              f"fits={rec['fits']}; {len(rec['fallbacks'])} fallbacks",
+              flush=True)
+
+
+def check_dryrun_anchor(smi):
+    """"lm train"'s cell (OLMo-1B, ``TRAIN_BATCH`` x ``TRAIN_SEQ``, f32,
+    remat none) on a (1, 1) mesh shape: ``lower_train_step``'s FLOPs equal
+    ``FlopCounterMode``'s count over one real step on the card exactly,
+    and its argument + temp bytes are within ``DRYRUN_MEM_TOL`` of the
+    device memory that step holds at its peak (from a reset, less what
+    was allocated before the model); the compute term beside the step's
+    measured ms.  Then ``compressed_grads`` on the same mesh shape: the
+    exact all-to-all + all-gather bytes equal the int8 payload per step
+    that "dist compressed train"'s ``recording_wire`` logged."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import (ShapeMesh, batch_to,
+                                              lower_train_step,
+                                              make_train_step)
+
+    shapes.SHAPES["lm_train"] = shapes.ShapeSpec("lm_train", "train",
+                                                 TRAIN_SEQ, TRAIN_BATCH)
+    cfg = get_config("olmo-1b")
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=10, total_steps=20)
+    mesh = ShapeMesh({"data": 1, "model": 1})
+    lowered, _ = lower_train_step(Model(cfg, device="meta", remat="none"),
+                                  opt_cfg, mesh, "lm_train")
+    want = lowered.cost_analysis()
+    mem = lowered.memory_analysis()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, "cuda", remat="none").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    state = init_state(opt_cfg, dict(model.named_parameters()))
+    step = make_train_step(model, opt_cfg)
+    batches = [batch_to(make_batch(cfg, DataConfig(batch=TRAIN_BATCH,
+                                                   seq=TRAIN_SEQ), i), "cuda")
+               for i in range(3)]
+    with FlopCounterMode(display=False) as fc:
+        model, state, _ = step(model, state, batches[0])
+    counted = fc.get_total_flops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, state, _ = step(model, state, batches[1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    if counted != want["flops"]:
+        raise AssertionError(f"dryrun anchor: lowered FLOPs {want['flops']}"
+                             f" != counted on the card {counted}")
+    if abs(predicted - peak) > DRYRUN_MEM_TOL * peak:
+        raise AssertionError(f"dryrun anchor: argument + temp {predicted} "
+                             f"vs the card's peak {peak}")
+    compute_ms = want["flops"] / dryrun.PEAK_FLOPS_F32 * 1e3
+    print(f"   olmo-1b {TRAIN_BATCH} x {TRAIN_SEQ}, f32, remat none, (1, 1) "
+          f"mesh ({smi}): lowered FLOPs {want['flops']:.6e} = "
+          f"FlopCounterMode over one step on the card {counted:.6e} "
+          f"(exact); argument {mem['argument_size_in_bytes']} + temp "
+          f"{mem['temp_size_in_bytes']} = {predicted} bytes vs the card's "
+          f"step peak {peak} bytes ({predicted / peak:.4f}x, gate "
+          f"{DRYRUN_MEM_TOL}); compute term {compute_ms:.3f} ms at "
+          f"{dryrun.PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32, memory term "
+          f"{want['bytes accessed'] / dryrun.HBM_BW * 1e3:.3f} ms "
+          f"({want['bytes accessed']:.4e} bytes accessed, unfused) vs "
+          f"{ms:.3f} ms measured for one step (host clock between syncs)"
+          + (f", \"lm train\" {RESULTS['lm train ms']:.3f} ms/step"
+             if "lm train ms" in RESULTS else ""), flush=True)
+
+    compressed, _ = lower_train_step(
+        Model(cfg, device="meta", remat="none"),
+        AdamWConfig(total_steps=20, error_feedback=True), mesh, "lm_train",
+        compressed_grads=True)
+    exact = compressed.exact_collectives()
+    payload = exact["all-to-all"] + exact["all-gather"]
+    logged = RESULTS.get("dist wire bytes per step")
+    if logged is None or payload != logged:
+        raise AssertionError(f"dryrun compressed: all-to-all + all-gather "
+                             f"{payload} != wire log {logged}")
+    print(f"   compressed_grads on the (1, 1) mesh shape: all-to-all "
+          f"{exact['all-to-all']} + all-gather {exact['all-gather']} = "
+          f"{payload} bytes per step = \"dist compressed train\"'s wire "
+          f"log {logged:.0f} (exact); all-reduce {exact['all-reduce']} "
+          f"bytes of scale maxima", flush=True)
+
+
+def check_dryrun(smi):
+    """The dry-run phases (no CEP kernel launches)."""
+    return run_lm_phases(smi, (("dryrun cells", check_dryrun_cells),
+                               ("dryrun anchor", check_dryrun_anchor)))
+
+
+# ---------------------------------------------------------------------------
+# The examples
+# ---------------------------------------------------------------------------
+
+
+def check_examples(smi):
+    """Each ``examples/torch_*.py`` at its default size on the card, with
+    the launch counters zeroed just before and read just after: its
+    output and seconds.  The CEP examples must launch the packed join and
+    the selection; ``torch_fleet_demo`` asserts every tenant's matches
+    equal ``RefEngine``'s.  Returns the launches per example."""
+    import importlib.util
+    import io
+
+    from repro_torch.kernels import ops as kops
+
+    launches = {}
+    for name, kernels in EXAMPLES:
+        t = phase(f"example {name}")
+        path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kops.reset_launch_counts()
+        buf = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(ROOT)
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main([])
+        finally:
+            os.chdir(cwd)
+        counts = {k: kops.LAUNCHES[k] + kops.GRAPH_LAUNCHES[k]
+                  for k in kops.LAUNCHES}
+        launches[f"example {name}"] = counts
+        for line in buf.getvalue().splitlines():
+            print(f"   | {line}")
+        missing = [k for k in kernels if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"example {name} never launched {missing}")
+        if name == "fleet_demo" and "fleet == oracle on every partition" \
+                not in buf.getvalue():
+            raise AssertionError("torch_fleet_demo: no oracle check")
+        print(f"   launches {counts}")
+        done(f"example {name}", t)
+    shutil.rmtree(os.path.join(ROOT, "build", "examples"),
+                  ignore_errors=True)
+    return launches
 
 
 def free_port() -> int:
@@ -3808,6 +4024,8 @@ def main() -> int:
     launches.update(check_lm_paths(smi))
     launches.update(check_lm_training(smi))
     launches.update(check_distribution(smi))
+    launches.update(check_dryrun(smi))
+    launches.update(check_examples(smi))
 
     print(f"   total seconds: {time.perf_counter() - t_all:.3f}")
     print(json.dumps({"selection_kernel": dict(
@@ -3827,6 +4045,11 @@ def main() -> int:
                     **({"single_stream": single[name]} if name in single
                        else {}))
                for name in REPLACES]
+    kernels.append(dict(
+        name=SELECT, route="cuda", source=SOURCE, replaces=SELECT_REPLACES,
+        launches=sum(n[SELECT] for n in launches.values()),
+        launches_by_path={p: n[SELECT] for p, n in launches.items()},
+        library_ms=None, single_stream=single[SELECT], **records[SELECT]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

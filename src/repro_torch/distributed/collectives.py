@@ -26,16 +26,57 @@ ranks holding the same gradient reproduces the reference's replicated
 ``all_to_all_single`` and the all-gather.  The group is a
 ``torch.distributed`` process group (a mesh axis's:
 ``launch.mesh.HostMesh.get_group``): gloo carries CPU tensors, NCCL
-CUDA ones.
+CUDA ones.  A ``ShapeOnlyGroup`` stands in for a group where only the
+shapes matter: the dry-run (``launch/dryrun.py``) runs the arithmetic of
+one rank on ``meta`` tensors to count it, with no process group.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+
+class ShapeOnlyGroup:
+    """A stand-in for a process group of ``size`` ranks on ``meta``
+    tensors: each exchange writes its output with a local copy of the
+    right shape (the values are not the exchange's) and adds the
+    output's bytes to ``sent[kind]`` (``"all-reduce"``, ``"all-to-all"``,
+    ``"all-gather"``): what one rank would receive."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.sent: Dict[str, int] = {}
+
+    def log(self, kind: str, out: torch.Tensor) -> None:
+        self.sent[kind] = (self.sent.get(kind, 0)
+                           + out.numel() * out.element_size())
+
+
+def _max_over(m: torch.Tensor, group) -> None:
+    if isinstance(group, ShapeOnlyGroup):
+        group.log("all-reduce", m)
+    else:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+
+
+def _all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    if isinstance(group, ShapeOnlyGroup):
+        out.copy_(x)
+        group.log("all-to-all", out)
+    else:
+        dist.all_to_all_single(out, x, group=group)
+
+
+def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    if isinstance(group, ShapeOnlyGroup):
+        out.copy_(x.repeat(group.size))
+        group.log("all-gather", out)
+    else:
+        dist.all_gather_into_tensor(out, x, group=group)
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -47,7 +88,7 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
 def _shared_scale(x: torch.Tensor, group) -> torch.Tensor:
     """max |x| / 127 over the group (the reference's ``pmax``), + 1e-12."""
     m = _div(x.abs().max(), 127.0).reshape(1)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    _max_over(m, group)
     return m[0] + 1e-12
 
 
@@ -77,7 +118,7 @@ def _compressed_allreduce(x, ef, group, n_shards: int):
 
     # Phase 2: int8 reduce-scatter (all_to_all + local int32 sum).
     recv = torch.empty_like(q1)
-    dist.all_to_all_single(recv, q1, group=group)
+    _all_to_all(recv, q1, group)
     ssum = recv.reshape(n_shards, chunk).to(torch.int32).sum(dim=0)
     part = ssum.float() * scale1                       # summed f32 chunk
 
@@ -86,7 +127,7 @@ def _compressed_allreduce(x, ef, group, n_shards: int):
     q2 = _quantize(part, scale2)
     gathered = torch.empty(n_shards * chunk, dtype=torch.int8,
                            device=q2.device)
-    dist.all_gather_into_tensor(gathered, q2, group=group)
+    _all_gather(gathered, q2, group)
     out = gathered.float()[:size] * scale2
     return _div(out, n_shards).reshape(shape), new_ef
 

@@ -109,10 +109,17 @@ def make_host_mesh(data: int = 1, model: int = 1,
     return _mesh((data, model), ("data", "model"), device)
 
 
+def production_mesh_shape(multi_pod: bool = False) -> Dict[str, int]:
+    """The production mesh's ``{axis name: size}``, in axis order."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> HostMesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    named = production_mesh_shape(multi_pod)
+    shape, axes = tuple(named.values()), tuple(named)
     n = math.prod(shape)
     if _world() < n:
         raise RuntimeError(

@@ -42,9 +42,14 @@ batched attention and expert products included.
 ``axes()`` and ``abstract()`` give each parameter's logical axes and a
 ``meta`` tensor of its shape and dtype, keyed by parameter name (the
 reference's trees through ``load_params``' mapping, less the stacked
-``layers`` axis); ``Model(cfg, device="meta")`` allocates nothing.  The
-reference's ``unroll_layers`` serves its dry-run's cost analysis, which
-is not ported yet (ROADMAP.md).
+``layers`` axis); ``Model(cfg, device="meta")`` allocates nothing.
+
+``unroll_layers`` is accepted for parity with the reference, where it
+unrolls the layer scan so that XLA's cost analysis counts every layer.
+The port's layer stack is already a Python loop, so every layer runs and
+is counted (``launch/cost.py``) either way: the flag changes nothing
+that runs.  The dry-run (``launch/dryrun.py``) passes it as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -174,10 +179,12 @@ class Model(ParamTree):
     ``init(generator)`` (random, the reference's scales) or
     ``params.load_params(model, tree)`` (a reference pytree).  ``remat``
     ("none", "full" or "dots") is what ``forward`` keeps for the backward
-    of each layer body, with the reference's default.
+    of each layer body, with the reference's default.  ``unroll_layers``
+    changes nothing that runs (module docstring).
     """
 
-    def __init__(self, cfg: ModelConfig, device="cuda", remat: str = "full"):
+    def __init__(self, cfg: ModelConfig, device="cuda", remat: str = "full",
+                 unroll_layers: bool = False):
         _remat(None, remat)  # rejects an unknown mode here
         dev = resolve_device(device)
         root = param_defs(cfg)
@@ -185,6 +192,7 @@ class Model(ParamTree):
         super().__init__(root, cfg.pdtype, dev)
         self.cfg = cfg
         self.remat = remat
+        self.unroll_layers = unroll_layers
         self.layers = nn.ModuleList(
             ParamTree(layer_defs(cfg), cfg.pdtype, dev)
             for _ in range(cfg.n_layers))

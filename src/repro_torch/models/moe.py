@@ -94,7 +94,12 @@ def routing_stats(probs, top_e, E: int, K: int):
     and the fraction of the T*K assignments per expert, ``frac[e]`` the
     reference's chain sum of ``1 / (T*K)`` over its assignments."""
     T = probs.shape[0]
-    counts = torch.bincount(top_e.reshape(-1), minlength=E)
+    # A fixed-length integer count (``bincount``'s length depends on the
+    # data, so it has no ``meta`` kernel); integer sums are exact in any
+    # order, CUDA's atomics included.
+    flat = top_e.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
     frac = _chain_table(T * K, probs.device)[counts]
     aux = E * torch.sum(frac * probs.mean(dim=0))
     return aux, frac

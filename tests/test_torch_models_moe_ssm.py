@@ -122,3 +122,42 @@ def test_ssd_chunked_matches_jax(chunk):
     close(hf, jhf, "final state", tol=1e-5)
     with pytest.raises(AssertionError):
         ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), 5)
+
+
+@pytest.mark.parametrize("arch", ("deepseek-moe-16b", "dbrx-132b"))
+def test_moe_runs_on_meta(arch):
+    """The MoE ``SMOKE`` configs' loss, backward and ``decode_step`` run on
+    ``meta`` tensors (the dry-run's placeholder device): the routing
+    counts have a fixed length, where ``bincount``'s depends on the
+    data and has no ``meta`` kernel."""
+    from repro_torch.models.model import Model
+
+    cfg = get_smoke(arch)
+    model = Model(cfg, device="meta")
+    tok = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    loss, metrics = model.loss({"tokens": tok, "labels": tok})
+    loss.backward()
+    assert metrics["expert_load"].shape == (cfg.n_layers, cfg.n_experts)
+    assert all(p.grad is not None and p.grad.device.type == "meta"
+               for n, p in model.named_parameters() if "router" in n)
+    logits, cache = model.decode_step(model.init_cache(4, 16), tok[:, :1])
+    assert logits.shape == (4, 1, cfg.vocab)
+    assert cache.index.device.type == "meta"
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_routing_stats_equal_bincount_bit_for_bit(seed):
+    """``routing_stats``' fixed-length count gives the ``frac`` and ``aux``
+    that ``bincount`` gave, bit for bit, on random routings (experts
+    left unrouted included)."""
+    from repro_torch.models.moe import _chain_table, routing_stats
+
+    rng = np.random.default_rng(seed)
+    t, e, k = 64 + 7 * seed, 8 + seed, 2 + seed % 3
+    probs = torch.from_numpy(rng.dirichlet(np.ones(e), t).astype(np.float32))
+    top_e = torch.from_numpy(rng.integers(0, e - 1, (t, k)))
+    aux, frac = routing_stats(probs, top_e, e, k)
+    want = _chain_table(t * k, probs.device)[
+        torch.bincount(top_e.reshape(-1), minlength=e)]
+    assert torch.equal(frac, want)
+    assert torch.equal(aux, e * torch.sum(want * probs.mean(dim=0)))

@@ -339,7 +339,8 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.distributed.sharding",
         "repro_torch.kernels", "repro_torch.kernels.ops",
         "repro_torch.kernels.ref", "repro_torch.kernels.window_join",
-        "repro_torch.launch", "repro_torch.launch.mesh",
+        "repro_torch.launch", "repro_torch.launch.cost",
+        "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
         "repro_torch.launch.serve", "repro_torch.launch.shapes",
         "repro_torch.launch.train",
         "repro_torch.models", "repro_torch.models.config",
