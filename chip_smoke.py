@@ -53,7 +53,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               overflow and continued from the carry of that chunk), and per
               kernel the launches the captures recorded times their
               replays;
-9. window profile — 16 chunks of the order window path under
+9. window profile — 16 chunks (two windows) of the order window path under
               ``torch.profiler``, after a first run that captured its
               graphs: device-busy share of the wall;
 10. serving — a monitored K=16 order session driven chunk by chunk
@@ -75,7 +75,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               after 32 chunks of a window run builds no kernel and
               captures no graph, and equals its solo session.  Prints
               events/s and peak memory of the per-chunk and window runs;
-              then 16 chunks of the per-chunk rulebook under
+              then 8 chunks of the per-chunk rulebook under
               ``torch.profiler`` (as phase 6);
 12. trace memo — the process-wide memo of steps and windows
               (``core/fleet.py::_shared_trace``): a second K=16 order
@@ -101,7 +101,8 @@ Phases (each prints its seconds; any failure exits non-zero):
               ported);
 14. adaptive loop — the paper's single-stream Algorithm 1
               (``repro_torch.core.AdaptiveRunner``) at its §5 setup
-              (benchmarks/common.py::run_one): the five pattern sets at
+              (``benchmarks/torch_common.py::run_metrics``, the twin of
+              benchmarks/common.py::run_one): the five pattern sets at
               size 8 (the composite's three branches merged with
               ``merge_metrics``), 40 traffic chunks, adaptive match
               capacities, per planner (greedy: order engine; zstream: tree
@@ -112,26 +113,40 @@ Phases (each prints its seconds; any failure exits non-zero):
               positive, and (seq, invariant) rerun with ``backend="ref"``
               gives equal integer metrics.  Prints events/s (host clock),
               replans, deployments, migration chunks, the capacities
-              reached and the D+A share per run; then 16 chunks of one
+              reached and the D+A share per run; then 8 chunks of one
               run under ``torch.profiler``;
 15. adaptive oracle — each set at size 4 over 20 chunks, both
               planners, against ``RefEngine``;
 16. monitored engine — ``MonitoredEngine`` (K = 1), order and tree
               plans, replanning on each flag: the fused flag equals the
               host mirror every chunk, and flags fire;
-17. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
+17. bench twins — the benchmark twins at ``--quick`` on the card, JSON
+              under ``build/bench_twins``: ``benchmarks/
+              torch_replay_bench.py`` (three scenarios, four
+              configurations, a warm pass and one timed pass each) and
+              ``benchmarks/torch_run.py`` (fig5, table1, fig69, fleet,
+              rulebook, moe, roofline; then the kernel bench, whose
+              launches are measurements and are not counted), with
+              ``--no-gate``: every correctness gate must hold (the replay's,
+              the sections', zero false positives at d=0 in fig5, matches
+              equal across fig69's methods); every throughput gate is
+              printed with its value, met or not; "bench twins" entry of
+              ``launches_by_path`` (the packed join, the row count and the
+              selection must launch);
+18. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
               at its own partitions over its 80 chunks, replayed per
               segment under the adaptive (per chunk and S=8), static and
-              pinned configurations, with the semantic replay gates
-              (silent control segments, adaptive == static per segment,
-              expected drift deployments, the pinned baseline loses
-              matches) and the whole run against ``RefEngine``; then the
-              FlowSense 3-rule rulebook's control gate and oracle.
+              pinned configurations (phase 17's replay rows), with the
+              replay twin's correctness gates (silent control segments,
+              adaptive == static per segment, expected drift deployments,
+              the pinned baseline loses matches) and the whole run against
+              ``RefEngine``; then the FlowSense 3-rule rulebook's control
+              gate and oracle.
               The kernels phase also holds the kernels at the adaptive
               loop's single-stream shapes (K = 1: the packed join and
               row count at M = 8192, B = 128; the tree join and the
               selection at the escalation limit M = B = 32768);
-18. lm serving — ``repro_torch.launch.serve.main(["--arch", a,
+19. lm serving — ``repro_torch.launch.serve.main(["--arch", a,
               "--requests", "16", "--slots", "4"])`` at full width and
               depth (f32, random weights drawn on the card) for
               olmo-1b, mamba2-1.3b and zamba2-1.2b: every request
@@ -144,7 +159,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               forward on the CPU is from the card's (measurements: at
               full depth the reference's init makes olmo's f32 forward
               chaotic, PERF.md);
-19. lm families — one config per family at full width, cut to two
+20. lm families — one config per family at full width, cut to two
               layers (paligemma: one), weights drawn on the CPU and
               copied to the card: forward, prefill and 4 decode steps on
               the card equal the port's CPU run within 2e-3 of the
@@ -153,7 +168,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               teacher-forced decode equals the forward, and a two-slot
               ``ServingEngine`` (one prompt padded to its bucket) equals
               the forward (token families).
-20. lm train — ``repro_torch.launch.train.main(["--arch", "olmo-1b",
+21. lm train — ``repro_torch.launch.train.main(["--arch", "olmo-1b",
               "--steps", "20", "--batch", "8", "--seq", "128"])`` at full
               width and depth (f32, TF32 off, remat none, weights drawn on
               the card): every step's ce, grad_norm and lr finite, every
@@ -162,48 +177,48 @@ Phases (each prints its seconds; any failure exits non-zero):
               peak memory; then 3 more steps under ``torch.profiler``
               (device-busy share, top ops, the optimizer's range) and one
               AdamW update timed with CUDA events beside its byte bound;
-21. lm train consistency — olmo-1b at full width, 2 layers, weights drawn
+22. lm train consistency — olmo-1b at full width, 2 layers, weights drawn
               on the card and copied to the CPU: per-leaf gradients card
               vs CPU; 3 train steps (ce, grad_norm, parameter updates);
               remat full and dots against none on the card (bit for bit
               or not); microbatches=2 against 1;
-22. lm train resume — the same cut through ``launch.train``: 10 straight
+23. lm train resume — the same cut through ``launch.train``: 10 straight
               steps against 5 with ``--ckpt-dir``/``--ckpt-every 5`` and a
               restart with ``--resume`` to 10, parameters bit-equal;
               prints checkpoint snapshot, write and restore seconds and
               bytes; the directory (``build/lm_train_ckpt``) is deleted;
-23. lm train moe placement — deepseek-moe-16b at full width, 2 layers,
+24. lm train moe placement — deepseek-moe-16b at full width, 2 layers,
               ``--adaptive-placement``, 12 steps: every step finite,
               ``expert_load`` (2, 64) summing to T * 6 per layer; at each
               deployment the loss of that step's batch equals the
               unrelocated model's within 1e-5 and every MoE layer's
               weights, router columns, m and v moved by the relocation;
               prints governor replans and deployments.
-24. lm train f64 — "lm train consistency"'s cut, weights and batch with
+25. lm train f64 — "lm train consistency"'s cut, weights and batch with
               the model in float64 (``float64_model``: the phase patches
               the dtypes, not the package): logits and per-leaf gradients
               card vs CPU within ``F64_LOGIT_TOL`` / ``F64_GRAD_TOL``, the
               f32 gaps scaled by the formats' rounding;
-25. lm train moe resume — deepseek-moe-16b at 1 layer through
+26. lm train moe resume — deepseek-moe-16b at 1 layer through
               ``launch.train``: 2 straight steps against 1 step + a
               checkpoint + ``--resume`` to 2, parameters bit-equal (the
               MoE combine and dispatch add nothing atomically);
-26. dist collective — a one-rank default group (``cpu:gloo,cuda:nccl``,
+27. dist collective — a one-rank default group (``cpu:gloo,cuda:nccl``,
               TCP store on 127.0.0.1) and ``launch.mesh.make_host_mesh(1,
               1)``: ``compressed_psum_tree`` on the reference test's leaves
               and a 2048 x 2048 one, card (NCCL) vs CPU (gloo) bit for
               bit, the reference's bounds, int8 payloads only;
-27. dist compressed train — ``launch.train``'s OLMo-1B at full size
+28. dist compressed train — ``launch.train``'s OLMo-1B at full size
               through ``make_train_step(compressed_grads=True, mesh=...)``
               with error feedback, 6 steps: finite, every parameter
               moved, residuals within 2 scales; ms per step beside "lm
               train"'s, the all-reduce's CUDA-event ms, int8 bytes per
               step, peak memory;
-28. dist compressed consistency — one compressed step of the 2-layer
+29. dist compressed consistency — one compressed step of the 2-layer
               olmo on the card and on the CPU from the card's gradients:
               residuals bit-equal, parameters within ``DIST_PARAM_TOL``;
               each device's own step printed beside it;
-29. dist moe ep — deepseek-moe-16b at 2 layers: the loss's forward and
+30. dist moe ep — deepseek-moe-16b at 2 layers: the loss's forward and
               backward with every MoE layer on the expert-parallel path
               (n_ep = 1 over NCCL) against the dense path, bit for bit.
               The CEP kernels' launch counters are zeroed before each LM
@@ -214,7 +229,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               collective", "dist compressed train", "dist compressed
               consistency" and "dist moe ep" entries of
               ``launches_by_path``;
-30. dryrun  — "dryrun cells": ``repro_torch.launch.dryrun.run_cell``
+31. dryrun  — "dryrun cells": ``repro_torch.launch.dryrun.run_cell``
               (``meta`` tensors on the host's CPU, H100 terms) for
               olmo-1b/train_4k, deepseek-moe-16b/train_4k,
               mamba2-1.3b/long_500k and yi-34b/decode_32k on the
@@ -226,7 +241,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               the compute term beside the measured ms; and with
               ``compressed_grads`` the all-to-all + all-gather bytes equal
               to "dist compressed train"'s int8 wire log per step;
-31. examples — each ``examples/torch_*.py`` at its default size on the
+32. examples — each ``examples/torch_*.py`` at its default size on the
               card (its output and seconds): the CEP examples launch the
               packed join and the selection, ``torch_fleet_demo``'s
               per-tenant oracle check passes; "example <name>" entries
@@ -256,7 +271,8 @@ import of the port (exit code 1).
 ``python3 chip_smoke.py --bench N`` (a measurement, not the check) runs
 only the device and build phases, then for the order and tree sessions
 and the serving plane N per-chunk and N window runs of the K=16 stream
-in turns (per-chunk, window, window, per-chunk, ...), each held to equal
+in turns (``benchmarks/torch_fleet_bench.py::bench_windows``:
+per-chunk, window, window, per-chunk, ...), each held to equal
 telemetry and each from an empty memo (so a window run captures its
 graphs in its first chunks), and prints each run's events/s over all 64
 chunks (graph captures included) and over the chunks after the first 8,
@@ -319,10 +335,9 @@ HOT_ADD_AT = 32
 ADAPT_SETS = ("seq", "conj", "neg", "kleene", "composite")
 ADAPT_SIZE = 8
 ADAPT_CHUNKS = 40
-ADAPT_POLICIES = {"static": {}, "unconditional": {},
-                  "threshold": dict(t=0.4), "invariant": dict(k=1, d=0.0)}
+ADAPT_POLICIES = ("static", "unconditional", "threshold", "invariant")
+# torch_common's run_one capacities: b_cap and the adaptive-cap bounds.
 ADAPT_B_CAP = 128
-ADAPT_M_CAP = 512
 ADAPT_CAP_BOUNDS = (256, 8192)
 RUN_FIELDS = ("chunks", "events", "full_matches", "pm_created", "overflow",
               "closure_expansions", "replans", "deployments",
@@ -331,7 +346,6 @@ RUN_FIELDS = ("chunks", "events", "full_matches", "pm_created", "overflow",
 # The adaptive oracle: each set at size 4 over 20 chunks.
 ORACLE_SIZE = 4
 ORACLE_CHUNKS = 20
-SCENARIO_CONFIGS = ("adaptive", "adaptive_s8", "static", "pinned")
 
 # The LM serving launcher at full size (repro/launch/serve.py's defaults:
 # cache_len 256, max_new 16, classes [16, 32, 64]), per arch.
@@ -464,10 +478,6 @@ PATH_KERNELS = {"order": ("window_join_packed", "window_join_rowcount",
 # The kernels each planner's adaptive-loop runs must launch.
 ADAPT_KERNELS = {"greedy": PATH_KERNELS["order"],
                  "zstream": PATH_KERNELS["tree"]}
-INT_FIELDS = ("chunks", "events", "matches", "replans", "deployments",
-              "violations", "host_syncs", "overflow", "dropped",
-              "neg_rejected", "closure_expansions", "escalations",
-              "migration_partition_chunks")
 
 
 def flowsense_rule():
@@ -1055,21 +1065,11 @@ def run_main(device, backend=None, plan="order", superchunk=1,
     return tel, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
-def same_telemetry(tel, want, what):
-    """Every integer telemetry field and the per-partition matches."""
-    for f in INT_FIELDS:
-        if getattr(tel, f) != getattr(want, f):
-            raise AssertionError(f"{what}: {f} {getattr(tel, f)} != "
-                                 f"{getattr(want, f)}")
-    if tel.per_partition_matches.tolist() != \
-            want.per_partition_matches.tolist():
-        raise AssertionError(f"{what}: per-partition matches differ")
-
-
 def check_path(plan):
     """Drives one path with the launch counters zeroed just before and
     read just after, then reruns it with the plain versions; returns the
     launch counts, the telemetry and the events/s."""
+    from benchmarks.torch_fleet_bench import INT_FIELDS, same_telemetry
     from repro_torch.kernels import ops as kops
 
     kops.reset_launch_counts()
@@ -1114,6 +1114,7 @@ def window_launches(path, kernels):
 def check_superchunk(plan, want, want_rate):
     """The K=16 session with superchunk=8 on the card against the
     per-chunk kernel run ``want``; returns the launch counts."""
+    from benchmarks.torch_fleet_bench import same_telemetry
     from repro_torch.core import scan
     from repro_torch.kernels import ops as kops
 
@@ -1186,6 +1187,7 @@ def check_serving():
     ``step_superchunk`` (S=8) and a third by ``step_superchunk`` with the
     plain versions, over the same 64 chunks; returns the launch counts of
     the first two runs."""
+    from benchmarks import torch_fleet_bench
     from repro_torch.core import scan
     from repro_torch.kernels import ops as kops
 
@@ -1194,8 +1196,10 @@ def check_serving():
     for superchunk in (1, SUPERCHUNK):
         kops.reset_launch_counts()
         scan.reset_counts()
-        seg_secs, out[superchunk], tels[superchunk], front = bench_run(
-            "serving", superchunk, chunks)
+        sess = open_bench_session("serving", superchunk)
+        seg_secs, out[superchunk] = torch_fleet_bench.timed_split_run(
+            sess, chunks, BENCH_SPLIT, True, superchunk, "cuda")
+        tels[superchunk], front = sess.telemetry(), sess._serving
         secs[superchunk] = sum(seg_secs)
         if superchunk == 1:
             step_launches = dict(kops.LAUNCHES)
@@ -1216,8 +1220,10 @@ def check_serving():
         raise AssertionError(f"serving window counts {counts}")
     kops.reset_launch_counts()
     scan.reset_counts()
-    _, ref_out, ref_tel, _ = bench_run("serving", SUPERCHUNK, chunks,
-                                       backend="ref")
+    sess = open_bench_session("serving", SUPERCHUNK, backend="ref")
+    _, ref_out = torch_fleet_bench.timed_split_run(
+        sess, chunks, BENCH_SPLIT, True, SUPERCHUNK, "cuda")
+    ref_tel = sess.telemetry()
     check_plain_window("serving")
     if ref_out.tolist() != out[SUPERCHUNK].tolist():
         raise AssertionError("plain step_superchunk per-chunk matches != "
@@ -1491,6 +1497,7 @@ def check_trace_memo(per_chunk, rulebook_want):
     launch counts per path."""
     import numpy as np
 
+    from benchmarks.torch_fleet_bench import same_telemetry
     from repro_torch.core import fleet, scan
     from repro_torch.core.fleet import stacked_streams
     from repro_torch.kernels import ops as kops
@@ -1593,6 +1600,7 @@ def check_mesh(per_chunk, rulebook_want):
     counts per path."""
     import torch
 
+    from benchmarks.torch_fleet_bench import same_telemetry
     from repro_torch import cep
     from repro_torch.core import scan
     from repro_torch.kernels import ops as kops
@@ -1650,101 +1658,6 @@ def check_mesh(per_chunk, rulebook_want):
 # ---------------------------------------------------------------------------
 
 
-def build_pattern(set_name, size, window=4.0, theta=-0.3):
-    """The paper's five pattern sets (§5.1) by size, as
-    benchmarks/common.py::build_pattern builds them, from the port's
-    pattern constructors."""
-    from repro_torch.core.patterns import (PRED_LT, CompositePattern,
-                                           Predicate, and_pattern,
-                                           chain_predicates, kleene_pattern,
-                                           neg_pattern, seq_pattern)
-
-    ids = list(range(size))
-    preds = chain_predicates(ids, theta=theta)
-    if set_name == "seq":
-        return seq_pattern(ids, window, preds)
-    if set_name == "conj":
-        return and_pattern(ids, window, preds)
-    if set_name == "neg":
-        # negated event = extra type `size`, absence between pos 0 and 1
-        return neg_pattern(
-            ids, window, negated_type=size, negated_pos=1,
-            predicates=preds,
-            negated_predicates=(Predicate(size, 0, PRED_LT, 0, 0, 0.0),))
-    if set_name == "kleene":
-        return kleene_pattern(ids, window, kleene_pos=size // 2,
-                              predicates=preds)
-    if set_name == "composite":
-        # disjunction of three independent sequences of `size` events
-        return CompositePattern(tuple(
-            seq_pattern(list(range(b * size, (b + 1) * size)), window,
-                        chain_predicates(
-                            list(range(b * size, (b + 1) * size)),
-                            theta=theta))
-            for b in range(3)))
-    raise ValueError(set_name)
-
-
-def stream_types(set_name, size):
-    return {"neg": size + 1, "composite": 3 * size}.get(set_name, size)
-
-
-def sync(device):
-    import torch
-
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
-def adaptive_streams(set_name, size, n_chunks, take=None):
-    """The traffic stream(s) of one §5 run, one per branch (seed 3, then
-    3 + branch), truncated to the first ``take`` chunks if given (the same
-    stream, since the regime shifts follow ``n_chunks``)."""
-    import itertools
-
-    from repro_torch.data.cep_streams import StreamConfig, make_stream
-
-    cfg = StreamConfig(
-        n_types=stream_types(set_name, size), n_attrs=1, n_chunks=n_chunks,
-        chunk_cap=CHUNK_CAP, base_rate=15.0, seed=3,
-        # ~4 regime shifts per run regardless of run length
-        shift_every=max(n_chunks / 4.0, 10.0))
-    n_branches = 3 if set_name == "composite" else 1
-    return [itertools.islice(
-        make_stream("traffic", dataclasses.replace(cfg, seed=3 + b)), take)
-        for b in range(n_branches)]
-
-
-def adaptive_run(set_name, size, planner, policy, n_chunks=ADAPT_CHUNKS,
-                 device="cuda", backend=None, take=None):
-    """One run of benchmarks/common.py::run_one on the port: an
-    ``AdaptiveRunner`` per branch (``merge_metrics`` over the composite's
-    three); returns the metrics, the wall seconds (ending in a device
-    sync) and the match capacities the runs built engines for."""
-    from repro_torch.core import AdaptiveRunner, EngineConfig, make_policy
-    from repro_torch.core.adaptation import merge_metrics
-    from repro_torch.core.patterns import CompositePattern
-
-    pat = build_pattern(set_name, size)
-    branches = (pat.branches if isinstance(pat, CompositePattern)
-                else (pat,))
-    ecfg = EngineConfig(b_cap=ADAPT_B_CAP, m_cap=ADAPT_M_CAP, device=device,
-                        backend=backend)
-    streams_ = adaptive_streams(set_name, size, n_chunks, take)
-    ms, caps = [], set()
-    sync(device)
-    t = time.perf_counter()
-    for branch, stream in zip(branches, streams_):
-        runner = AdaptiveRunner(
-            branch, planner=planner,
-            policy=make_policy(policy, **ADAPT_POLICIES[policy]),
-            engine_cfg=ecfg, adaptive_caps=True, cap_bounds=ADAPT_CAP_BOUNDS)
-        ms.append(runner.run(stream))
-        caps |= set(runner._engines)
-    sync(device)
-    return merge_metrics(ms), time.perf_counter() - t, sorted(caps)
-
-
 def same_run_metrics(got, want, what):
     for f in RUN_FIELDS:
         if getattr(got, f) != getattr(want, f):
@@ -1760,14 +1673,16 @@ def check_adaptive(planner, device="cuda", size=ADAPT_SIZE,
     escalation, no false positive of the invariant policy at d=0, and the
     plain-version rerun of (seq, invariant) with equal integer metrics.
     Returns the launch counts."""
+    from benchmarks import torch_common
     from repro_torch.kernels import ops as kops
 
     kops.reset_launch_counts()
     runs = {}
     for set_name in ADAPT_SETS:
         for policy in ADAPT_POLICIES:
-            m, wall, caps = adaptive_run(set_name, size, planner, policy,
-                                         n_chunks, device)
+            m, wall, caps, _ = torch_common.run_metrics(
+                "traffic", planner, set_name, size, policy,
+                n_chunks=n_chunks, device=device)
             runs[set_name, policy] = m, wall
             print(f"   {planner} {set_name}-{size} {policy}: {m.events} "
                   f"events in {wall:.3f} s = {m.events / wall:.1f} events/s;"
@@ -1800,8 +1715,9 @@ def check_adaptive(planner, device="cuda", size=ADAPT_SIZE,
 
     # the plain versions on the card, on (seq, invariant)
     kops.reset_launch_counts()
-    ref, ref_wall, ref_caps = adaptive_run(
-        "seq", size, planner, "invariant", n_chunks, device, backend="ref")
+    ref, ref_wall, ref_caps, _ = torch_common.run_metrics(
+        "traffic", planner, "seq", size, "invariant", n_chunks=n_chunks,
+        device=device, backend="ref")
     if any(kops.LAUNCHES.values()):
         raise AssertionError("adaptive backend='ref' launched a kernel")
     same_run_metrics(ref, runs["seq", "invariant"][0],
@@ -1817,19 +1733,22 @@ def check_adaptive_oracle(device="cuda", size=ORACLE_SIZE,
     """Each pattern set at a narrow size through the loop (invariant
     policy, both planners) against the brute-force oracle on the same
     stream(s)."""
+    from benchmarks import torch_common
     from repro_torch.core.patterns import CompositePattern
     from repro_torch.core.ref_engine import RefEngine
 
     for set_name in ADAPT_SETS:
-        pat = build_pattern(set_name, size)
+        pat = torch_common.build_pattern(set_name, size)
         branches = (pat.branches if isinstance(pat, CompositePattern)
                     else (pat,))
         want = sum(RefEngine(b).run(s).full_matches for b, s in zip(
-            branches, adaptive_streams(set_name, size, n_chunks)))
+            branches, torch_common.branch_streams("traffic", set_name, size,
+                                                  n_chunks)))
         got = []
         for planner in ("greedy", "zstream"):
-            m, _, _ = adaptive_run(set_name, size, planner, "invariant",
-                                   n_chunks, device)
+            m, _, _, _ = torch_common.run_metrics(
+                "traffic", planner, set_name, size, "invariant",
+                n_chunks=n_chunks, device=device)
             if m.full_matches != want or m.overflow:
                 raise AssertionError(
                     f"adaptive oracle {planner} {set_name}-{size}: "
@@ -1840,18 +1759,21 @@ def check_adaptive_oracle(device="cuda", size=ORACLE_SIZE,
               f"zstream matches == oracle {want} (replans {got})")
 
 
-def profile_adaptive(planner, n_chunks=16, top=8):
+def profile_adaptive(planner, n_chunks=8, top=8):
     """The first chunks of one §5 run (seq, size 8, invariant policy)
     under ``torch.profiler``: the single-stream loop's device-busy share
     and its largest device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmarks import torch_common
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
-        m, wall, _ = adaptive_run("seq", ADAPT_SIZE, planner, "invariant",
-                                  take=n_chunks)
+        m, wall, _, _ = torch_common.run_metrics(
+            "traffic", planner, "seq", ADAPT_SIZE, "invariant",
+            n_chunks=ADAPT_CHUNKS, take=n_chunks)
     print(f"   {planner}: D+A share of the run "
           f"{m.adaptation_overhead:.4f}")
     report_profile(prof, wall, n_chunks, f"adaptive {planner}", top,
@@ -1917,42 +1839,6 @@ def check_monitored_engine(device="cuda"):
               f"{fired} flags fired and replanned, {matches} matches")
 
 
-def scenario_session(sc, config, device="cuda"):
-    """A fresh session for one runtime configuration of the replay
-    (benchmarks/replay_bench.py::_session): the monitored invariant
-    policy (per chunk, or 8-chunk windows), the pinned cold plan with
-    escalation ("static"), or without ("pinned")."""
-    from repro_torch import cep
-    from repro_torch.cep import RuntimeConfig
-
-    rt = dict(sc.runtime, device=device)
-    monitor, superchunk = False, 1
-    if config.startswith("adaptive"):
-        monitor = True
-        rt["escalate_on_overflow"] = True
-        superchunk = SUPERCHUNK if config == "adaptive_s8" else 1
-    else:
-        rt["policy"] = None
-        rt.pop("policy_kw", None)
-        rt["escalate_on_overflow"] = config != "pinned"
-    return cep.open(sc.pattern, partitions=sc.partitions, monitor=monitor,
-                    superchunk=superchunk, config=RuntimeConfig(**rt))
-
-
-def replay(sc, segs, config, device="cuda"):
-    """Segment by segment through one resumable session: per segment
-    (segment, wall seconds, telemetry)."""
-    sess = scenario_session(sc, config, device)
-    rows = []
-    for i, (seg, parts) in enumerate(segs):
-        sync(device)
-        t = time.perf_counter()
-        tel = sess.run(parts, resume=i > 0)
-        sync(device)
-        rows.append((seg, time.perf_counter() - t, tel))
-    return rows
-
-
 def window_peak(sc):
     """The most events of one type inside one pattern window, over every
     partition's stream: what the per-type ring buffers must hold for no
@@ -2005,68 +1891,51 @@ def check_scenario_oracle(sc, got, want, device="cuda"):
             f"buffer_capacity={b}: matches == oracle")
 
 
-def check_scenarios(device="cuda", names=None):
+def check_scenarios(runs, device="cuda"):
     """Each bundled scenario at its own partitions over its full length,
-    under the four replay configurations, with the semantic gates of
-    benchmarks/replay_bench.py:146-167 (zero replans and violations on
-    the control segment, per chunk and in windows; adaptive and static
-    matches equal per segment; drift deployments at least the scenario's
-    expected minimum; the pinned baseline loses matches) and the whole
-    run against the oracle per partition; then the FlowSense rulebook's
-    control gate and oracle (tests/test_scenarios.py:126-152)."""
+    under the four replay configurations of
+    ``benchmarks/torch_replay_bench.py`` (``runs``: the twin's rows per
+    scenario and configuration from the "bench twins" phase), with the
+    twin's correctness gates (zero replans and violations on the control
+    segment, per chunk and in windows; adaptive and static matches equal
+    per segment; drift deployments at least the scenario's expected
+    minimum; the pinned baseline loses matches) and the whole run against
+    the oracle per partition; then the FlowSense rulebook's control gate and oracle
+    (tests/test_scenarios.py:126-152)."""
     import numpy as np
 
+    from benchmarks import torch_replay_bench as replay_bench
     from repro_torch.cep import RuntimeConfig, open_rulebook
     from repro_torch.core.ref_engine import RefEngine
     from repro_torch.data import scenarios
     from repro_torch.data.scenarios import flowsense
 
-    for name in names or scenarios.names():
+    for name in scenarios.names():
         sc = scenarios.get(name)
-        segs = sc.segment_streams()
-        runs = {c: replay(sc, segs, c, device) for c in SCENARIO_CONFIGS}
-
-        def by_gate(config, gate):
-            return [r for r in runs[config] if r[0].gate == gate]
-
-        for config in ("adaptive", "adaptive_s8"):
-            for seg, _, t in by_gate(config, "control"):
-                if t.replans or t.violations:
-                    raise AssertionError(
-                        f"{name} {config} control segment {seg.name}: "
-                        f"replans {t.replans}, violations {t.violations}")
-        for (seg, _, ta), (_, _, ts) in zip(runs["adaptive"],
-                                            runs["static"]):
-            if ta.matches != ts.matches:
-                raise AssertionError(f"{name} {seg.name}: adaptive "
-                                     f"{ta.matches} != static {ts.matches}")
-        deployments = sum(t.deployments for _, _, t in
-                          by_gate("adaptive", "drift"))
+        rows = runs[name]
+        gates, _, recall = replay_bench.scenario_gates(sc, rows)
+        failed = [g for g, ok in gates.items()
+                  if not ok and g not in replay_bench.THROUGHPUT_GATES]
+        if failed:
+            raise AssertionError(f"{name}: replay gates failed: {failed}")
+        drift_a = replay_bench.by_gate(rows["adaptive"], "drift")
+        drift_s = replay_bench.by_gate(rows["static"], "drift")
+        deployments = sum(t.deployments for _, _, t in drift_a)
         want_dep = int(sc.expected.get("min_drift_deployments", 1))
-        if deployments < want_dep:
-            raise AssertionError(f"{name}: {deployments} drift deployments "
-                                 f"< {want_dep}")
-        m_static = sum(t.matches for _, _, t in by_gate("static", "drift"))
-        m_pinned = sum(t.matches for _, _, t in by_gate("pinned", "drift"))
-        if not m_pinned < m_static:
-            raise AssertionError(f"{name}: pinned {m_pinned} does not lose "
-                                 f"matches against static {m_static}")
-        got = sum(t.per_partition_matches for _, _, t in runs["adaptive"])
+        got = sum(t.per_partition_matches for _, _, t in rows["adaptive"])
         want = [RefEngine(sc.pattern.build()).run(sc.stream(p)).full_matches
                 for p in range(sc.partitions)]
         oracle = check_scenario_oracle(sc, got.tolist(), want, device)
         rates = ", ".join(
             f"{seg.name} adaptive {ta.events / wa:.1f} vs static "
             f"{ts.events / ws:.1f}"
-            for (seg, wa, ta), (_, ws, ts) in zip(
-                by_gate("adaptive", "drift"), by_gate("static", "drift")))
+            for (seg, wa, ta), (_, ws, ts) in zip(drift_a, drift_s))
         print(f"   {name} K={sc.partitions}, {sc.n_chunks} chunks, "
-              f"{sum(t.events for _, _, t in runs['adaptive'])} events: "
+              f"{sum(t.events for _, _, t in rows['adaptive'])} events: "
               f"control silent (per chunk and S={SUPERCHUNK}), adaptive == "
               f"static per segment, drift deployments {deployments} >= "
-              f"{want_dep}, pinned drift recall "
-              f"{m_pinned / max(1, m_static):.4f}, {oracle}; events/s per "
-              f"drift segment (host clock): {rates}",
+              f"{want_dep}, pinned drift recall {recall:.4f}, {oracle}; "
+              f"events/s per drift segment (host clock): {rates}",
               flush=True)
 
     sc = scenarios.get("flowsense")
@@ -2092,6 +1961,97 @@ def check_scenarios(device="cuda", names=None):
     print(f"   flowsense 3-rule rulebook, K={k}: control segment silent, "
           f"zero overflow, per-rule matches == oracle "
           f"{rb.match_counts.tolist()}")
+
+
+BENCH_DIR = os.path.join(ROOT, "build", "bench_twins")
+# The kernels the bench twins' runs must launch (greedy loops, order
+# sessions, the flowsense negation veto).
+BENCH_KERNELS = PATH_KERNELS["order"]
+
+
+def read_json(name):
+    with open(os.path.join(BENCH_DIR, name)) as fh:
+        return json.load(fh)
+
+
+def print_gates(what, gates):
+    for name, g in gates.items():
+        slack = (f"; {g['seconds']:.4f} s vs {g['base_s']:.4f} s, "
+                 f"{g['slack_s']} s slack" if "slack_s" in g else "")
+        print(f"   {what} throughput gate {name}: {g['value']} "
+              f"({g['bound']} {g['threshold']}{slack}) "
+              f"{'met' if g['met'] else 'NOT MET'}")
+
+
+def check_bench_twins(device="cuda"):
+    """The benchmark twins at ``--quick`` on the card, JSON under
+    ``build/bench_twins``, with the launch counters zeroed just before and
+    read just after (``torch_kernel_bench``'s launches are measurements
+    and comparisons: run after the read).  ``torch_replay_bench`` over the
+    three scenarios, then ``torch_run`` (fig5, table1, fig69, fleet,
+    rulebook, moe, roofline), both with ``--no-gate``: a correctness gate
+    fails the phase (a red section, the replay's correctness gates, a
+    false positive of the invariant method at d = 0, matches that depend
+    on the method), a throughput gate is printed with its value, met or
+    not.  Returns the replay's rows per scenario and configuration (for
+    the "scenarios" phase) and the launch counts."""
+    from benchmarks import torch_replay_bench, torch_run
+    from repro_torch.kernels import ops as kops
+
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    os.makedirs(BENCH_DIR)
+    kops.reset_launch_counts()
+    runs = {}
+    torch_replay_bench.main(
+        ["--quick", "--no-gate", "--passes", "1", "--device", device,
+         "--json", os.path.join(BENCH_DIR, "BENCH_torch_scenarios.json")],
+        runs=runs)
+    doc = read_json("BENCH_torch_scenarios.json")
+    if not doc["all_correctness_pass"]:
+        raise AssertionError("replay twin: correctness gates failed: " + str(
+            {n: r["gates"] for n, r in doc["scenarios"].items()}))
+    for name, res in doc["scenarios"].items():
+        print_gates(f"replay {name}", res["throughput_gates"])
+    only = ",".join(k for k in torch_run.KEYS if k != "kernel")
+    if torch_run.main(["--quick", "--no-gate", "--device", device,
+                       "--only", only, "--out-dir", BENCH_DIR]) != 0:
+        raise AssertionError("torch_run --quick: a section failed")
+    launches = {k: kops.LAUNCHES[k] + kops.GRAPH_LAUNCHES[k]
+                for k in kops.LAUNCHES}
+    missing = [k for k in BENCH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"bench twins never launched {missing}")
+    print(f"   bench twins launches (wrapper + graph): {launches}")
+    if torch_run.main(["--quick", "--no-gate", "--device", device,
+                       "--only", "kernel", "--out-dir", BENCH_DIR]) != 0:
+        raise AssertionError("torch_run --quick --only kernel failed")
+
+    fig5 = read_json("torch_fig5.json")
+    zero = [r for r in fig5["rows"] if r["d"] == 0.0]
+    if not zero or any(r["false_positives"] for r in zero):
+        raise AssertionError(f"fig5: false positives at d=0: "
+                             f"{[r['false_positives'] for r in zero]}")
+    rows = read_json("torch_fig69.json")["rows"]
+    for key in {(r["dataset"], r["algo"], r["pattern_set"], r["size"])
+                for r in rows}:
+        got = {r["matches"] for r in rows
+               if (r["dataset"], r["algo"], r["pattern_set"], r["size"])
+               == key}
+        if len(got) != 1:
+            raise AssertionError(f"fig69 {key}: matches depend on the "
+                                 f"method: {got}")
+    print(f"   fig5: d_opt {dict((k, v) for k, v in fig5.items() if '/' in k)}"
+          f", zero false positives at d=0 ({len(zero)} runs); fig69: "
+          f"matches equal across the four methods; gain over static "
+          f"{read_json('torch_fig69.json')['gain_over_static']}")
+    for name in ("fleet", "rulebook", "kernel"):
+        print_gates(name, read_json(f"BENCH_torch_{name}.json")["gates"])
+    for r in read_json("BENCH_torch_kernel.json")["rows"]:
+        if r.get("graph_ms") is not None and r["shape"].startswith("K"):
+            print(f"   {r['config']} at {r['shape']}: graph "
+                  f"{r['graph_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms")
+    return runs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2538,6 +2498,8 @@ class StepRecorder:
         self.seconds, self.metrics, self.first, self.last = [], [], None, None
 
     def __call__(self, model, opt_cfg, **kw):
+        from benchmarks.torch_common import sync
+
         inner = self.make(model, opt_cfg, **kw)
         self.opt_cfg = opt_cfg
 
@@ -2835,6 +2797,7 @@ def timed_checkpoints(log, final_save=True):
     bytes) to ``log`` for each write (in the writer thread too), snapshot
     and restore; without ``final_save`` its synchronous ``save`` (a run's
     last checkpoint) writes nothing."""
+    from benchmarks.torch_common import sync
     from repro_torch.checkpoint import CheckpointManager
 
     class Timed(CheckpointManager):
@@ -2880,6 +2843,7 @@ def check_lm_train_resume(smi, device="cuda", arch="olmo-1b", steps=10,
 
     import torch
 
+    from benchmarks.torch_common import sync
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
@@ -3324,6 +3288,7 @@ def check_dist_compressed_consistency(smi, mesh, device="cuda"):
     elements near a grid boundary land on neighbouring levels."""
     import torch
 
+    from benchmarks.torch_common import sync
     from repro_torch.configs import get_config
     from repro_torch.data.lm_data import DataConfig, make_batch
     from repro_torch.models import Model
@@ -3413,6 +3378,7 @@ def check_dist_moe_ep(smi, mesh, device="cuda"):
     loss, aux, expert loads and every gradient bit-equal."""
     import torch
 
+    from benchmarks.torch_common import sync
     from repro_torch.configs import get_config
     from repro_torch.data.lm_data import DataConfig, make_batch
     from repro_torch.models import Model
@@ -3678,98 +3644,34 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def bench_run(path, superchunk, chunks, backend=None):
-    """One bench run of a fresh K=16 session over the stacked ``chunks``:
-    its first ``BENCH_SPLIT`` chunks (in which a window path captures its
-    graphs) and the rest, timed apart.  ``path`` is a plan ("order",
-    "tree": ``Session.run``) or "serving" (order plans through ``step``,
-    or ``step_superchunk`` with S > 1).  Returns the two segments'
-    seconds, the per-chunk matches (serving), the telemetry and the
-    runner or serving front.  ``backend="ref"`` runs the plain versions."""
-    import numpy as np
-    import torch
-
+def open_bench_session(path, superchunk, backend=None):
+    """A fresh monitored K=16 FlowSense session for ``path``: a plan
+    ("order", "tree": ``Session.run``) or "serving" (order plans through
+    ``step``, or ``step_superchunk`` with S > 1).  ``backend="ref"`` runs
+    the plain versions."""
     from repro_torch import cep
 
     plan = "order" if path == "serving" else path
     cfg = path_config(plan, buffer_capacity=B_CAP, match_capacity=M_CAP,
                       chunk_capacity=CHUNK_CAP, device="cuda",
                       superchunk=superchunk, backend=backend)
-    sess = cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
+    return cep.open(flowsense_rule(), partitions=K_MAIN, plan=plan,
                     monitor=True, config=cfg)
-    secs, got = [], []
-    for seg in (chunks[:BENCH_SPLIT], chunks[BENCH_SPLIT:]):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if path != "serving":
-            sess.run(seg, resume=bool(secs))
-        elif superchunk == 1:
-            got.append(np.stack([sess.step(fc.chunk, fc.t0, fc.t1)
-                                 for fc in seg]))
-        else:
-            got.append(sess.step_superchunk(
-                [fc.chunk for fc in seg], [(fc.t0, fc.t1) for fc in seg]))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t)
-    runner = sess._serving if path == "serving" else sess._runner
-    return (secs, np.concatenate(got) if got else None, sess.telemetry(),
-            runner)
 
 
 def bench(n_runs):
     """Per path (order, tree, serving), ``n_runs`` per-chunk and ``n_runs``
-    window runs (S=8) in turns, each held to equal telemetry; prints
-    events/s per run over all 64 chunks (captures included) and over the
-    56 after the first ``BENCH_SPLIT`` (graphs captured), with medians and
-    ranges, peak memory, and the window runs' graph replays and in-window
-    events."""
-    import numpy as np
-    import torch
+    window runs (S=8) in turns, each held to equal telemetry:
+    ``benchmarks/torch_fleet_bench.py::bench_windows`` over the 64 chunks,
+    the first ``BENCH_SPLIT`` (graph captures) timed apart."""
+    from benchmarks import torch_fleet_bench
 
-    from repro_torch.core import fleet, scan
-
-    turns = ([1, SUPERCHUNK, SUPERCHUNK, 1] * n_runs)[:2 * n_runs]
-    chunks, n_events = serving_chunks()
-    n_late = int(sum(np.asarray(fc.chunk.valid).sum()
-                     for fc in chunks[BENCH_SPLIT:]))
-    for path in ("order", "tree", "serving"):
-        rates = {(s, w): [] for s in (1, SUPERCHUNK) for w in ("all", "late")}
-        peaks = {1: 0, SUPERCHUNK: 0}
-        want = None  # the first run's telemetry and per-chunk matches
-        for superchunk in turns:
-            # Each run opens a fresh memo, so a window run's first chunks
-            # hold its captures, as for a first session in a process.
-            fleet.clear_trace_memo()
-            scan.reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            secs, got, tel, runner = bench_run(path, superchunk, chunks)
-            want = want or (tel, got)
-            same_telemetry(tel, want[0], f"bench {path} S={superchunk}")
-            if got is not None and got.tolist() != want[1].tolist():
-                raise AssertionError(f"bench {path} S={superchunk}: "
-                                     "per-chunk matches differ")
-            rates[superchunk, "all"].append(n_events / sum(secs))
-            rates[superchunk, "late"].append(n_late / secs[1])
-            peaks[superchunk] = max(peaks[superchunk],
-                                    torch.cuda.max_memory_allocated())
-            if superchunk > 1:
-                cut, counts = runner.in_window_events, dict(scan.COUNTS)
-        for (superchunk, which), r in rates.items():
-            span = ("all 64 chunks" if which == "all" else
-                    f"chunks {BENCH_SPLIT}-{CHUNKS_MAIN - 1}")
-            print(f"   bench {path} superchunk={superchunk}, {span}: "
-                  f"events/s {[round(x, 1) for x in r]}, median "
-                  f"{statistics.median(r):.1f} (range {min(r):.1f}-"
-                  f"{max(r):.1f})")
-        print(f"   bench {path}: peak device memory per-chunk "
-              f"{peaks[1] / 2 ** 30:.3f} GiB, window "
-              f"{peaks[SUPERCHUNK] / 2 ** 30:.3f} GiB; the last window "
-              f"run's windows {counts['windows']}, graph captures "
-              f"{counts['captures']}, replays {counts['replays']}, "
-              f"in-window events {cut}")
+    chunks, _ = serving_chunks()
+    torch_fleet_bench.bench_windows(open_bench_session, chunks, n_runs,
+                                    superchunk=SUPERCHUNK, split=BENCH_SPLIT)
 
 
-def profile_main(plan="order", n_chunks=16, top=12, superchunk=1, warm=0):
+def profile_main(plan="order", n_chunks=8, top=12, superchunk=1, warm=0):
     """Where a path's time goes: ``n_chunks`` chunks under
     ``torch.profiler``, after ``warm`` chunks run unprofiled (in which a
     window path, ``superchunk`` > 1, captures its graphs); prints the
@@ -3898,6 +3800,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    from benchmarks import torch_common
     from repro_torch.core.engine import make_spec, packed_row_count
     from repro_torch.core.multipattern import packed_rule_row_count
     from repro_torch.kernels import window_join
@@ -3945,7 +3848,7 @@ def main() -> int:
     # The adaptive loop's widest order and tree steps: the size-8 seq
     # pattern's packed rows, and its tree join's (2 validity + 2 window +
     # 1 order + 2 per predicate).
-    seq8 = make_spec(build_pattern("seq", ADAPT_SIZE))
+    seq8 = make_spec(torch_common.build_pattern("seq", ADAPT_SIZE))
     single = check_single_stream_kernels(
         "cuda", packed_row_count(seq8), 2 + 2 + 1 + 2 * len(seq8.pred_pairs))
     done("kernels", t)
@@ -3971,7 +3874,8 @@ def main() -> int:
         done(f"superchunk, plan={plan}", t)
 
     t = phase("window profile, plan=order")
-    profile_main("order", superchunk=SUPERCHUNK, warm=8)
+    profile_main("order", n_chunks=2 * SUPERCHUNK, superchunk=SUPERCHUNK,
+                 warm=8)
     done("window profile, plan=order", t)
 
     t = phase("serving")
@@ -4017,8 +3921,12 @@ def main() -> int:
     check_monitored_engine()
     done("monitored engine", t)
 
+    t = phase("bench twins")
+    replay_runs, launches["bench twins"] = check_bench_twins()
+    done("bench twins", t)
+
     t = phase("scenarios")
-    check_scenarios()
+    check_scenarios(replay_runs)
     done("scenarios", t)
 
     launches.update(check_lm_paths(smi))

@@ -1,14 +1,15 @@
 """``repro_torch.cep.open(...).run`` against ``repro.cep.open(...).run``.
 
-On the per-chunk rows of the ``tests/test_session.py`` grid (order and
-tree plans, monitor on and off, K in {1, 4}), every integer field of the
-port's ``Telemetry`` must equal the reference's, and so must
-``last_drift`` and the runners' ``FleetMetrics.pm_created`` (join work)
-must be equal too.  Further runs cover a flag-triggered replan, overflow
-escalation (with de-escalation on deploy), a ``plan="auto"`` that
-resolves to tree, and streams split across ``run(..., resume=True)``.  A
-subprocess checks that importing the port loads neither jax nor any
-module of the JAX package.
+On the per-chunk order rows of the ``tests/test_session.py`` grid
+(monitor on and off, K in {1, 4}), every integer field of the port's
+``Telemetry`` must equal the reference's, and so must ``last_drift`` and
+the runners' ``FleetMetrics.pm_created`` (join work).  The tree rows and
+the tree resume split are in ``tests/test_torch_session_tree.py``, which
+imports the helpers here.  Further runs cover a flag-triggered replan,
+overflow escalation (with de-escalation on deploy), a ``plan="auto"`` that
+resolves to tree, and streams split across ``run(..., resume=True)``.  A subprocess checks that
+importing the port and the benchmark twins loads neither jax nor any
+module of the JAX package or a JAX harness.
 """
 
 import dataclasses
@@ -45,6 +46,14 @@ INT_FIELDS = ("chunks", "events", "matches", "replans", "deployments",
 SCFG = dict(n_types=3, n_chunks=10, chunk_cap=128, base_rate=8.0)
 CONFIG = dict(buffer_capacity=64, match_capacity=1024, max_invariants=8,
               max_terms=16)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def rule(P_):
@@ -89,19 +98,6 @@ def run_both(monitor, k, config=CONFIG, seed=11, scfg=SCFG, plan="order"):
                                        (True, 4)])
 def test_session_grid_matches_jax(monitor, k):
     tel = run_both(monitor, k)
-    oracle = [RefEngine(rule(P).build()).run(s).full_matches
-              for s in streams(k)]
-    assert tel.per_partition_matches.tolist() == oracle
-    assert tel.chunks == SCFG["n_chunks"]
-    if monitor:
-        assert tel.host_syncs == tel.violations
-
-
-@pytest.mark.parametrize("monitor,k", [(False, 1), (False, 4), (True, 1),
-                                       (True, 4)])
-def test_tree_session_grid_matches_jax(monitor, k):
-    """The tree rows of the grid: ZStream planner, tree engine."""
-    tel = run_both(monitor, k, plan="tree")
     oracle = [RefEngine(rule(P).build()).run(s).full_matches
               for s in streams(k)]
     assert tel.per_partition_matches.tolist() == oracle
@@ -157,11 +153,6 @@ def test_runner_join_work_matches_jax(monitor):
     _runner_join_work(monitor, "greedy")
 
 
-@pytest.mark.parametrize("monitor", [False, True])
-def test_tree_runner_join_work_matches_jax(monitor):
-    _runner_join_work(monitor, "zstream")
-
-
 def test_flag_triggered_replans_match_jax():
     """Shocks every few chunks fire device flags; replans, deployments and
     the [36] migration split must land on the reference's chunks."""
@@ -201,10 +192,6 @@ def _resume_split(plan):
 
 def test_resume_split_matches_jax_and_one_run():
     _resume_split("order")
-
-
-def test_tree_resume_split_matches_jax_and_one_run():
-    _resume_split("tree")
 
 
 def test_plan_resolution_and_deferred_features():
@@ -301,8 +288,9 @@ def test_or_composite_session_sums_branches():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing every module of the port loads no jax and no module of
-    the JAX package (checked in a fresh interpreter)."""
+    """Importing every module of the port and every benchmark twin
+    (``benchmarks/torch_*.py``) loads no jax, no module of the JAX package
+    and no JAX harness (checked in a fresh interpreter)."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     modules = [
         "repro_torch", "repro_torch.adaptive",
@@ -352,19 +340,36 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.train", "repro_torch.train.optimizer",
         "repro_torch.train.train_step",
     ]
+    # The benchmark twins: none may load jax, repro or a JAX harness.
+    twins = [
+        "benchmarks.torch_adaptive_moe", "benchmarks.torch_common",
+        "benchmarks.torch_fig5_distance", "benchmarks.torch_fig69_methods",
+        "benchmarks.torch_fleet_bench", "benchmarks.torch_kernel_bench",
+        "benchmarks.torch_perf_iter", "benchmarks.torch_replay_bench",
+        "benchmarks.torch_roofline", "benchmarks.torch_rulebook_bench",
+        "benchmarks.torch_run", "benchmarks.torch_table1_davg",
+    ]
     code = (
         "import importlib, sys\n"
-        f"for m in {modules!r}:\n"
+        f"for m in {modules + twins!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') or "
+        "(m.startswith('benchmarks.') and "
+        "not m.startswith('benchmarks.torch_')))\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    root = os.path.abspath(os.path.join(src, ".."))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.abspath(src), root]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+    # Every twin under benchmarks/ is in the list above.
+    assert {"benchmarks." + f[:-3] for f in
+            os.listdir(os.path.join(root, "benchmarks"))
+            if f.startswith("torch_") and f.endswith(".py")} == set(twins)
     # Every module of the package is in the list above.
     pkg = os.path.join(os.path.abspath(src), "repro_torch")
     found = {
