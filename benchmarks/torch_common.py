@@ -125,9 +125,11 @@ COUNT_FIELDS = ("events", "matches", "pm_created", "replans", "deployments",
 
 
 def sync(device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
+    """Wait for the queued work of every device of ``device``'s type (a
+    meshed run's blocks may lie on several; a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def check_device(device: str) -> str:

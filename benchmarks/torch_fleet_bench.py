@@ -24,7 +24,8 @@ chunks:
 (e) ``scan``  — the monitored session with ``superchunk=8`` (each chunk
     of a window one CUDA-graph replay on the card), gated at ≥ 2× the
     per-chunk throughput at K=16 (+0.15 s of slack);
-(f) ``shard`` — (e) with ``mesh=1``: D = 1, reported and not gated.
+(f) ``shard`` — (e) with K split over ``gcd(K, devices)`` devices of the
+    run's type (D = 1 on one card or the CPU), reported and not gated.
 
 Scanned and meshed counts and violations must equal per-chunk stepping.
 Throughput gates are recorded in ``BENCH_torch_fleet.json`` with both
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import statistics
 import time
 
@@ -59,6 +61,7 @@ from repro_torch.core.engine import (NEG_INF, POS_INF, Chunk, EngineConfig,
                                      OrderEngine)
 from repro_torch.core.fleet import FleetEngine, stacked_streams
 from repro_torch.data.cep_streams import StreamConfig, make_stream
+from repro_torch.distributed import local_devices
 
 from .torch_common import (check_device, device_block, seconds_gate, sync,
                            write_json)
@@ -287,8 +290,9 @@ def bench_superchunk(k: int = 16, superchunk: int = 8, n_chunks: int = 260,
 
     per_chunk_s, c1, v1 = sweep(1)
     scan_s, c8, v8 = sweep(superchunk)
-    # The port's cep mesh runs at D = 1 (D > 1 is not ported).
-    devices = 1
+    # Largest device count that divides K (an uneven split is rejected by
+    # design); on one device this is the D=1 blocked code path.
+    devices = math.gcd(k, len(local_devices(device)))
     shard_s, cs, vs = sweep(superchunk, mesh=devices)
 
     if not c1.tolist() == c8.tolist() == cs.tolist():

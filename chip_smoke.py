@@ -91,14 +91,20 @@ Phases (each prints its seconds; any failure exits non-zero):
               after ``clear_trace_memo()``), and per plan the first
               window's seconds of a fresh session with a fresh memo and
               on a memo hit, with the captures saved;
-13. mesh    — the ``cep`` device mesh at D = 1
-              (``distributed/sharding.py``): the order window and the
-              rulebook window with ``mesh=1`` and ``mesh="auto"`` equal
-              the unmeshed runs (each meshed session captures its own
-              graphs: meshed windows are never memoized), launches
-              counted; ``mesh=2`` raises ``ValueError`` on a one-GPU host
-              (``NotImplementedError`` on a larger one: D > 1 is not
-              ported);
+13. mesh    — the ``cep`` device mesh (``distributed/sharding.py``: K
+              split into D blocks, each resident on its mesh device and
+              run by its own engine and window): at D = 1 (``mesh=1``)
+              the order window and the rulebook window; at D = 2 and 4
+              blocks sharing the card (``CepMesh((cuda:0,) * D)``) the
+              phase 4 fleet three ways, the order window, the tree per
+              chunk and the rulebook window; each equals the unmeshed
+              run (integer telemetry, per-rule counters; each meshed
+              session captures its own graphs: meshed windows are never
+              memoized), launches counted, graph captures, events/s
+              and peak device memory printed.  On a host with several
+              GPUs the three paths also run across distinct GPUs
+              (``mesh=gcd(K, count)``, peak memory per device); on one
+              GPU a line says so, and ``mesh=2`` raises ``ValueError``;
 14. adaptive loop — the paper's single-stream Algorithm 1
               (``repro_torch.core.AdaptiveRunner``) at its §5 setup
               (``benchmarks/torch_common.py::run_metrics``, the twin of
@@ -255,7 +261,9 @@ each of their kernels must show graph launches.  A window path's
 ``launches_by_path`` entry is the sum of the two; the rulebook's are
 "rulebook" and "rulebook window", the memo phase's "trace memo-order",
 "-tree", "-interleave" (both sessions) and "-rulebook", the mesh
-phase's "mesh-order" and "mesh-rulebook" (both meshes), the adaptive
+phase's "mesh-order" and "mesh-rulebook" (D = 1) and
+"mesh-{order,tree,rulebook}-d2", "-d4" (and "-auto" across GPUs), the
+adaptive
 loop's "adaptive-greedy" and "adaptive-zstream" (all runs of a
 planner).  A kernel's record also
 holds its ``single_stream`` shape, times and bound.
@@ -276,7 +284,11 @@ per-chunk, window, window, per-chunk, ...), each held to equal
 telemetry and each from an empty memo (so a window run captures its
 graphs in its first chunks), and prints each run's events/s over all 64
 chunks (graph captures included) and over the chunks after the first 8,
-with the medians and ranges.
+with the medians and ranges.  ``python3 chip_smoke.py --mesh`` runs the
+device and build phases, the unmeshed per-chunk order, tree and rulebook
+runs of phase 4's stream, then phase 13 against them (on a host with
+several GPUs, the same paths across them), and prints the launches per
+path; like ``--bench`` it prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -318,6 +330,8 @@ SUPERCHUNK = 8
 # Chunks of the superchunk phases' plain-version window reruns (a prefix
 # of the stream, two windows; the tree path's took 145 s over all 64).
 WINDOW_REF_CHUNKS = 16
+# The mesh phase's block counts on one card (K_MAIN / D partitions each).
+MESH_BLOCKS = (2, 4)
 # --bench times each run's first chunks (graph captures) apart.
 BENCH_SPLIT = 8
 
@@ -1039,6 +1053,17 @@ def path_config(plan, **kw):
     return RuntimeConfig(**kw)
 
 
+def sync_all(reset_peaks=False):
+    """Wait for every CUDA device (a meshed run's blocks may lie on
+    several), resetting each one's peak memory statistic if asked."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+        if reset_peaks:
+            torch.cuda.reset_peak_memory_stats(i)
+
+
 def run_main(device, backend=None, plan="order", superchunk=1,
              sessions=None, n_chunks=CHUNKS_MAIN, mesh=None):
     """The full-width path through ``cep.open(...).run`` over the first
@@ -1057,11 +1082,10 @@ def run_main(device, backend=None, plan="order", superchunk=1,
     if sessions is not None:
         sessions.append(sess)
     data = streams(K_MAIN, n_chunks, BASE_RATE, CHUNK_CAP)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    sync_all(reset_peaks=True)
     t = time.perf_counter()
     tel = sess.run(data)
-    torch.cuda.synchronize()
+    sync_all()
     return tel, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
@@ -1279,11 +1303,10 @@ def run_rulebook(chunks, backend=None, superchunk=1, k=None, caps=None,
                            backend=backend, superchunk=superchunk,
                            mesh=mesh),
                        spare_slots=RULEBOOK_SPARE)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    sync_all(reset_peaks=True)
     t = time.perf_counter()
     rb.run(chunks)
-    torch.cuda.synchronize()
+    sync_all()
     return rb, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
@@ -1592,64 +1615,138 @@ def check_trace_memo(per_chunk, rulebook_want):
     return launches
 
 
+def mesh_paths(mesh, tag, per_chunk, rulebook_want):
+    """The §4 FlowSense fleet (K=16, 64 chunks, full capacities) with K
+    split over ``mesh`` three ways: the order window, the tree per chunk
+    and the rulebook window, each with the launch counters zeroed just
+    before and read just after, and each equal to the unmeshed run
+    (integer telemetry; the rulebook's per-rule counters).  Prints graph
+    captures, events/s and peak device memory (per device); returns the
+    launch counts per path ("mesh-<path>-<tag>")."""
+    import torch
+
+    from benchmarks.torch_fleet_bench import same_telemetry
+    from repro_torch.core import scan
+    from repro_torch.kernels import ops as kops
+
+    def peaks():
+        return ", ".join(
+            f"cuda:{i} {torch.cuda.max_memory_allocated(i) / 2 ** 30:.3f}"
+            for i in range(torch.cuda.device_count()))
+
+    launches = {}
+    for plan, superchunk in (("order", SUPERCHUNK), ("tree", 1)):
+        kops.reset_launch_counts()
+        scan.reset_counts()
+        box = []
+        tel, secs, _ = run_main("cuda", plan=plan, superchunk=superchunk,
+                                sessions=box, mesh=mesh)
+        fleet_ = box[0]._runner.fleet
+        same_telemetry(tel, per_chunk[plan][0], f"{plan} mesh {tag}")
+        name = f"mesh-{plan}-{tag}"
+        if superchunk > 1:
+            launches[name] = window_launches(name, PATH_KERNELS[plan])
+            if scan.COUNTS["captures"] <= 0 or scan.COUNTS["eager_steps"]:
+                raise AssertionError(f"{name}: window counts "
+                                     f"{dict(scan.COUNTS)}")
+        else:
+            launches[name] = dict(kops.LAUNCHES)
+            for k in PATH_KERNELS[plan]:
+                if launches[name][k] <= 0:
+                    raise AssertionError(f"{name} never launched {k}")
+        print(f"   {plan} {'window' if superchunk > 1 else 'per chunk'}, "
+              f"{fleet_.mesh.shape['cep']} blocks on "
+              f"{[str(d) for d in fleet_.mesh.devices]}: equal integer "
+              f"telemetry to the unmeshed run; {tel.events / secs:.1f} "
+              f"events/s (unmeshed per chunk {per_chunk[plan][1]:.1f}), "
+              f"graph captures {scan.COUNTS['captures']}, peak device "
+              f"memory GiB {peaks()}", flush=True)
+    chunks, n_events = serving_chunks()
+    kops.reset_launch_counts()
+    scan.reset_counts()
+    rb, secs, _ = run_rulebook(chunks, superchunk=SUPERCHUNK, mesh=mesh)
+    if rulebook_counters(rb) != rulebook_want:
+        raise AssertionError(f"rulebook mesh {tag}: counters differ")
+    name = f"mesh-rulebook-{tag}"
+    launches[name] = window_launches(name, PATH_KERNELS["order"])
+    print(f"   rulebook window, {rb.mesh.shape['cep']} blocks: equal "
+          f"per-rule counters to the unmeshed run; "
+          f"{n_events / secs:.1f} events/s, graph captures "
+          f"{scan.COUNTS['captures']}, peak device memory GiB {peaks()}",
+          flush=True)
+    return launches
+
+
 def check_mesh(per_chunk, rulebook_want):
-    """The ``cep`` device mesh at D = 1: the order window and the
-    rulebook window with ``mesh=1`` and ``mesh="auto"`` equal the
-    unmeshed runs (meshed windows are never shared, so each captures its
-    own graphs); ``mesh=2`` raises on a one-GPU host.  Returns the launch
-    counts per path."""
+    """The ``cep`` device mesh: at D = 1 (``mesh=1``) the order window
+    and the rulebook window; at D = 2 and 4 blocks sharing the card
+    (``CepMesh((cuda:0,) * D)``) the order window, the tree per chunk
+    and the rulebook window (``mesh_paths``); on a host with several
+    GPUs the same across distinct GPUs (``mesh=gcd(K, count)``).  Every
+    run equals the unmeshed one (meshed windows are never shared, so
+    each captures its own graphs).  Returns the launch counts per
+    path."""
+    import math
+
     import torch
 
     from benchmarks.torch_fleet_bench import same_telemetry
     from repro_torch import cep
     from repro_torch.core import scan
+    from repro_torch.distributed import CepMesh
     from repro_torch.kernels import ops as kops
 
     launches = {}
     kops.reset_launch_counts()
-    for mesh in (1, "auto"):
-        scan.reset_counts()
-        box = []
-        tel, secs, _ = run_main("cuda", plan="order", superchunk=SUPERCHUNK,
-                                sessions=box, mesh=mesh)
-        d = box[0]._runner.fleet.mesh.shape["cep"]
-        same_telemetry(tel, per_chunk["order"][0], f"order mesh={mesh!r}")
-        if scan.COUNTS["captures"] <= 0 or scan.COUNTS["eager_steps"]:
-            raise AssertionError(f"mesh={mesh!r}: window counts "
-                                 f"{dict(scan.COUNTS)}")
-        print(f"   order window, mesh={mesh!r} (D={d}): equal integer "
-              f"telemetry to the unmeshed runs; {tel.events / secs:.1f} "
-              f"events/s, graph captures {scan.COUNTS['captures']}")
+    scan.reset_counts()
+    tel, secs, _ = run_main("cuda", plan="order", superchunk=SUPERCHUNK,
+                            mesh=1)
+    same_telemetry(tel, per_chunk["order"][0], "order mesh=1")
     launches["mesh-order"] = window_launches("mesh order",
                                              PATH_KERNELS["order"])
-    chunks, _ = serving_chunks()
+    print(f"   order window, mesh=1: equal integer telemetry to the "
+          f"unmeshed runs; {tel.events / secs:.1f} events/s, graph "
+          f"captures {scan.COUNTS['captures']}")
+    chunks, n_events = serving_chunks()
     kops.reset_launch_counts()
-    for mesh in (1, "auto"):
-        scan.reset_counts()
-        rb, secs, _ = run_rulebook(chunks, superchunk=SUPERCHUNK, mesh=mesh)
-        if rulebook_counters(rb) != rulebook_want or rb.mesh is None:
-            raise AssertionError(f"rulebook mesh={mesh!r}: counters differ")
-        print(f"   rulebook window, mesh={mesh!r}: equal per-rule counters; "
-              f"graph captures {scan.COUNTS['captures']}")
+    scan.reset_counts()
+    rb, secs, _ = run_rulebook(chunks, superchunk=SUPERCHUNK, mesh=1)
+    if rulebook_counters(rb) != rulebook_want or rb.mesh is None:
+        raise AssertionError("rulebook mesh=1: counters differ")
     launches["mesh-rulebook"] = window_launches("mesh rulebook",
                                                 PATH_KERNELS["order"])
-    want = ValueError if torch.cuda.device_count() < 2 else \
-        NotImplementedError
-    for what, opener in (
-            ("cep.open", lambda: cep.open(
-                flowsense_rule(), partitions=K_MAIN, plan="order",
-                monitor=True, config=path_config("order", device="cuda"),
-                mesh=2)),
-            ("open_rulebook", lambda: cep.open_rulebook(
-                flowsense_rulebook(), partitions=K_MAIN,
-                config=path_config("order", device="cuda", mesh=2)))):
-        try:
-            opener()
-        except want as e:
-            print(f"   {what}(mesh=2) on {torch.cuda.device_count()} GPU(s) "
-                  f"raises {type(e).__name__}: {e}")
-        else:
-            raise AssertionError(f"{what}(mesh=2) did not raise")
+    print(f"   rulebook window, mesh=1: equal per-rule counters; "
+          f"{n_events / secs:.1f} events/s, graph captures "
+          f"{scan.COUNTS['captures']}")
+
+    card = torch.device("cuda", 0)
+    for d in MESH_BLOCKS:
+        print(f"   D={d} blocks sharing {card}:", flush=True)
+        launches.update(mesh_paths(CepMesh((card,) * d), f"d{d}", per_chunk,
+                                   rulebook_want))
+    count = torch.cuda.device_count()
+    if count >= 2:
+        g = math.gcd(K_MAIN, count)
+        print(f"   mesh={g} across {g} distinct GPUs (gcd(K={K_MAIN}, "
+              f"{count})):", flush=True)
+        launches.update(mesh_paths(g, "auto", per_chunk, rulebook_want))
+    else:
+        print(f"   this host has {count} GPU: the mesh across distinct GPUs "
+              f"(mesh='auto', gcd(K, count) devices) was not run here")
+        for what, opener in (
+                ("cep.open", lambda: cep.open(
+                    flowsense_rule(), partitions=K_MAIN, plan="order",
+                    monitor=True, config=path_config("order", device="cuda"),
+                    mesh=2)),
+                ("open_rulebook", lambda: cep.open_rulebook(
+                    flowsense_rulebook(), partitions=K_MAIN,
+                    config=path_config("order", device="cuda", mesh=2)))):
+            try:
+                opener()
+            except ValueError as e:
+                print(f"   {what}(mesh=2) on one GPU raises ValueError: {e}")
+            else:
+                raise AssertionError(f"{what}(mesh=2) did not raise")
     return launches
 
 
@@ -3671,6 +3768,21 @@ def bench(n_runs):
                                     superchunk=SUPERCHUNK, split=BENCH_SPLIT)
 
 
+def mesh_only():
+    """``--mesh``: the unmeshed per-chunk order and tree runs and the
+    per-chunk rulebook of phase 4, then the mesh phase against them (on a
+    host with several GPUs, its run across them too); prints the launches
+    per path."""
+    per_chunk = {}
+    for plan in ("order", "tree"):
+        tel, secs, _ = run_main("cuda", plan=plan)
+        per_chunk[plan] = (tel, tel.events / secs)
+    chunks, _ = serving_chunks()
+    rb, _, _ = run_rulebook(chunks)
+    launches = check_mesh(per_chunk, rulebook_counters(rb))
+    print(json.dumps({"launches_by_path": launches}))
+
+
 def profile_main(plan="order", n_chunks=8, top=12, superchunk=1, warm=0):
     """Where a path's time goes: ``n_chunks`` chunks under
     ``torch.profiler``, after ``warm`` chunks run unprofiled (in which a
@@ -3831,6 +3943,11 @@ def main() -> int:
         t = phase("bench")
         bench(int(sys.argv[sys.argv.index("--bench") + 1]))
         done("bench", t)
+        return 0
+    if "--mesh" in sys.argv:
+        t = phase("mesh")
+        mesh_only()
+        done("mesh", t)
         return 0
 
     t = phase("kernels")

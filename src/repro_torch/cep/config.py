@@ -49,13 +49,14 @@ class RuntimeConfig:
                 invariant flag), with results bit-identical to per-chunk
                 stepping.  The batch plane needs ``monitor=True`` for it.
     mesh:       shard the K-partition axis across devices — ``None`` (no
-                sharding), ``"auto"`` (every device of ``device``'s type),
-                an int device count, or a ``distributed.CepMesh`` with a
-                ``"cep"`` axis.  K must divide by the device count, and
-                the mesh must lie on ``device``; a D=1 mesh runs the
-                sharded code path on one device.  D > 1 raises
-                ``NotImplementedError`` until the multi-GPU split lands
-                (ROADMAP.md).
+                sharding), ``"auto"`` (every distinct device of
+                ``device``'s type), an int count of distinct devices, or a
+                ``distributed.CepMesh`` with a ``"cep"`` axis.  K must
+                divide by the device count, and every mesh device must be
+                of ``device``'s type.  K/D partitions live on each mesh
+                device, block by block, with results equal to the
+                unmeshed run.  Only an explicit ``CepMesh`` may repeat a
+                device (D blocks sharing one card or the CPU).
 
     Statistics
     ----------

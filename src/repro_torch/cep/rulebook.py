@@ -63,10 +63,11 @@ from ..core.multipattern import (BucketSpec, RuleOps, RulePlans, ShareOps,
                                  make_rulebook_plane, pad_rule,
                                  packed_rule_row_count, stack_rule_ops)
 from ..core.patterns import PRED_NONE, CompositePattern, Pattern
-from ..core.scan import (_upload, first_event, make_rulebook_scan,
+from ..core.scan import (_upload, block_xs, first_event, make_rulebook_scan,
                          stack_rulebook_window, upload_rulebook_window)
-from ..distributed.sharding import resolve_cep_mesh
 from ..core.stats import MonitorState, Stat, uniform_stat
+from ..distributed.sharding import (BlockLayout, Blocks, per_block,
+                                    resolve_cep_mesh, to_host)
 from .config import RuntimeConfig
 from .dsl import as_pattern
 from .session import Stream, Telemetry, _normalize_stream
@@ -116,21 +117,47 @@ def _row_write(dev, host, index) -> None:
         d[index].copy_(torch.from_numpy(np.array(np.asarray(h)[index])))
 
 
+def _cell_write(layout, dev, host, k, q) -> None:
+    """Cell ``(k, q)`` of (K, Qb, ...) host arrays into their device
+    tensors, every partition when ``k`` is None.  On a mesh (``layout``)
+    ``dev`` is ``Blocks`` and each write goes to the block that owns the
+    partition, at its row there."""
+    if layout is None:
+        _row_write(dev, host, (slice(None) if k is None else k, q))
+        return
+    owners = ([(b, slice(None)) for b in range(layout.d)] if k is None
+              else [layout.owner(k)])
+    for b, kl in owners:
+        sl = layout.slices[b]
+        _row_write(dev[b], [np.asarray(h)[sl] for h in host], (kl, q))
+
+
+def _replica_write(dev, host, q) -> None:
+    """Row ``q`` of replicated host arrays into every device copy (one
+    write per device on a mesh, whose blocks share a device's copy)."""
+    parts = dev if isinstance(dev, Blocks) else (dev,)
+    for part in {id(p): p for p in parts}.values():
+        _row_write(part, host, q)
+
+
 class _Lowered2D:
     """(K, Qb) invariant matrix: host-writable rows, device copy patched
-    row by row (the fleet's ``StackedLowered`` with a rule axis)."""
+    row by row (the fleet's ``StackedLowered`` with a rule axis); on a
+    mesh (``layout``) the device copy is ``Blocks``."""
 
-    def __init__(self, host: LoweredInvariants, device):
+    def __init__(self, host: LoweredInvariants, device, layout=None):
         self.host = host
         self.device_name = device
-        self._dev: Optional[LoweredInvariants] = None
+        self.layout = layout
+        self._dev = None
 
     @classmethod
-    def build(cls, rows_kq: Sequence[Sequence[LoweredInvariants]], device):
+    def build(cls, rows_kq: Sequence[Sequence[LoweredInvariants]], device,
+              layout=None):
         return cls(LoweredInvariants(
             *(np.stack([np.stack([np.asarray(getattr(r, f)) for r in krow])
                         for krow in rows_kq])
-              for f in LoweredInvariants._fields)), device)
+              for f in LoweredInvariants._fields)), device, layout)
 
     def write(self, k: int, q: int, row: LoweredInvariants) -> None:
         for f in LoweredInvariants._fields:
@@ -141,7 +168,7 @@ class _Lowered2D:
                     f"stacked {dst[k, q].shape}")
             dst[k, q] = src
         if self._dev is not None:
-            _row_write(self._dev, self.host, (k, q))
+            _cell_write(self.layout, self._dev, self.host, k, q)
 
     def grow(self, new_qcap: int) -> None:
         pad = new_qcap - self.host.active.shape[1]
@@ -150,10 +177,13 @@ class _Lowered2D:
             for x in self.host))
         self._dev = None
 
-    def device(self) -> LoweredInvariants:
+    def device(self):
         if self._dev is None:
-            self._dev = LoweredInvariants(*_upload(
-                [np.asarray(x) for x in self.host], self.device_name))
+            arrays = [np.asarray(x) for x in self.host]
+            self._dev = (LoweredInvariants(*_upload(arrays, self.device_name))
+                         if self.layout is None else
+                         Blocks(LoweredInvariants(*b)
+                                for b in self.layout.upload(arrays)))
         return self._dev
 
 
@@ -215,11 +245,14 @@ class _Bucket:
 
     def _refresh_share(self) -> None:
         d = self.depth
-        up = _upload([np.asarray(x, np.int64) for x in
-                      (*self.rep_h, *self.parent_h, self.expand_h)],
-                     self.rb.device)
-        self.share_d = ShareOps(rep=tuple(up[:d]), parent=tuple(up[d:2 * d]),
-                                expand=up[2 * d])
+
+        def share(up):
+            return ShareOps(rep=tuple(up[:d]), parent=tuple(up[d:2 * d]),
+                            expand=up[2 * d])
+
+        self.share_d = per_block(share, self.rb._replicate(
+            [np.asarray(x, np.int64) for x in
+             (*self.rep_h, *self.parent_h, self.expand_h)]))
 
     def _make_plane(self) -> None:
         rb = self.rb
@@ -259,13 +292,12 @@ class _Bucket:
                 self._strip_cell(kk, q)
 
     def _upload_ops(self) -> None:
-        self.ops_d = RuleOps(*_upload([np.asarray(x) for x in self.ops_h],
-                                      self.rb.device))
+        self.ops_d = per_block(lambda up: RuleOps(*up), self.rb._replicate(
+            [np.asarray(x) for x in self.ops_h]))
 
     def _upload_plans(self) -> None:
-        self.plans_d = RulePlans(*_upload(
-            [self.plans_h.astype(np.int64), *self.strips_h],
-            self.rb.device))
+        self.plans_d = per_block(lambda up: RulePlans(*up), self.rb._k_led(
+            [self.plans_h.astype(np.int64), *self.strips_h]))
 
     def _plans_host(self):
         return (self.plans_h, *self.strips_h)
@@ -339,17 +371,14 @@ class _Bucket:
                 for q in range(self.q_cap):
                     if low_rows[k][q] is None:
                         low_rows[k][q] = empty
-            self.lowered = _Lowered2D.build(low_rows, dev)
-            self.monitor = init_rule_monitor(
-                self.bspec, rb.k, self.q_cap, rb.config.estimator_buckets,
-                dev)
+            self.lowered = _Lowered2D.build(low_rows, dev, rb.layout)
+            self.monitor = rb._init_monitor(self.bspec, self.q_cap)
         self.ops_h = stack_rule_ops(rows)
         self._upload_ops()
         self._all_strips()
         self._upload_plans()
         self._refresh_share()
-        self.state = init_rule_buffers(self.bspec, rb.engine_cfg, rb.k,
-                                       self.q_cap, dev)
+        self.state = rb._init_state(self.bspec, self.q_cap)
         self._make_plane()
 
     def _probe_caps(self, patterns: Sequence[Pattern]) -> Tuple[int, int]:
@@ -410,9 +439,12 @@ class _Bucket:
                             dtype=x.dtype, device=x.device)
             return torch.cat([x, z], dim=1)
 
-        self.state = type(self.state)(*(pad(x) for x in self.state))
+        self.state = per_block(lambda st: type(st)(*(pad(x) for x in st)),
+                               self.state)
         if rb.monitored:
-            self.monitor = MonitorState(*(pad(x) for x in self.monitor))
+            self.monitor = per_block(
+                lambda mon: MonitorState(*(pad(x) for x in mon)),
+                self.monitor)
             self.lowered.grow(new)
             empty = self._empty_lowered()
             for k in range(rb.k):
@@ -442,28 +474,29 @@ class _Bucket:
         for f in RuleOps._fields:
             np.asarray(getattr(self.ops_h, f))[q] = np.asarray(
                 getattr(row, f))
-        _row_write(self.ops_d, self.ops_h, q)
+        _replica_write(self.ops_d, self.ops_h, q)
         for k in range(self.rb.k):
             self._strip_cell(k, q)
-        _row_write(self.plans_d, self._plans_host(), (slice(None), q))
+        _cell_write(self.rb.layout, self.plans_d, self._plans_host(), None,
+                    q)
 
     def write_plan_row(self, k: int, q: int, order: np.ndarray) -> None:
         self.plans_h[k, q] = order
         self._strip_cell(k, q)
-        _row_write(self.plans_d, self._plans_host(), (k, q))
+        _cell_write(self.rb.layout, self.plans_d, self._plans_host(), k, q)
 
     def write_plan_all_k(self, q: int, order: np.ndarray) -> None:
         self.plans_h[:, q] = order
         for k in range(self.rb.k):
             self._strip_cell(k, q)
-        _row_write(self.plans_d, self._plans_host(), (slice(None), q))
+        _cell_write(self.rb.layout, self.plans_d, self._plans_host(), None,
+                    q)
 
     def zero_state_row(self, q: int) -> None:
-        for x in self.state:
-            x[:, q] = 0
-        if self.monitor is not None:
-            for x in self.monitor:
-                x[:, q] = 0
+        for part in (self.state, self.monitor):
+            for blk in (part if isinstance(part, Blocks) else (part,)):
+                for x in (blk or ()):
+                    x[:, q] = 0
 
 
 class _OrderRow:
@@ -474,7 +507,8 @@ class _OrderRow:
 
 
 def _stats_host(rates, sel):
-    """(rates, sel) of every cell as float64 numpy, in one transfer."""
+    """(rates, sel) of every cell of a block as float64 numpy, in one
+    transfer."""
     flat = torch.cat([rates.reshape(-1), sel.reshape(-1)]).cpu().numpy()
     r = flat[:rates.numel()].reshape(tuple(rates.shape))
     s = flat[rates.numel():].reshape(tuple(sel.shape))
@@ -500,6 +534,8 @@ class Rulebook:
         self.engine_cfg: EngineConfig = self.config.engine()
         self.device = resolve_device(self.config.device)
         self.mesh = resolve_cep_mesh(self.config.mesh, self.k, self.device)
+        self.layout = (None if self.mesh is None
+                       else BlockLayout(self.mesh, self.k))
         self.spare_slots = int(spare_slots)
         patterns = [self._check_pattern(as_pattern(r)) for r in rules]
         if not patterns:
@@ -609,6 +645,50 @@ class Rulebook:
             bucket.build(entries, self.spare_slots)
             self._buckets.append(bucket)
 
+    # -- placement ----------------------------------------------------------
+
+    def _replicate(self, arrays):
+        """Fleet-wide host arrays on the device, one copy (one per mesh
+        device, shared by its blocks)."""
+        if self.layout is None:
+            return _upload(arrays, self.device)
+        return self.layout.replicate(arrays)
+
+    def _k_led(self, arrays):
+        """K-led host arrays on the device, one copy (on a mesh each
+        block's rows on its device, one copy per block)."""
+        if self.layout is None:
+            return _upload(arrays, self.device)
+        return self.layout.upload(arrays)
+
+    def _init_state(self, bspec: BucketSpec, q_cap: int):
+        if self.layout is None:
+            return init_rule_buffers(bspec, self.engine_cfg, self.k, q_cap,
+                                     self.device)
+        return self.layout.build(lambda kb, dev: init_rule_buffers(
+            bspec, self.engine_cfg, kb, q_cap, dev))
+
+    def _init_monitor(self, bspec: BucketSpec, q_cap: int):
+        n_buckets = self.config.estimator_buckets
+        if self.layout is None:
+            return init_rule_monitor(bspec, self.k, q_cap, n_buckets,
+                                     self.device)
+        return self.layout.build(lambda kb, dev: init_rule_monitor(
+            bspec, kb, q_cap, n_buckets, dev))
+
+    def _fired_stats(self, rates, sel, fired_k):
+        """(rates, sel) of every cell as float64 numpy (K, Qb, ...), read
+        in one transfer; on a mesh one per block that owns a fired
+        partition (the other blocks' rows stay zero, unread)."""
+        if self.layout is None:
+            return _stats_host(rates, sel)
+        lay = self.layout
+        r = np.zeros((self.k,) + tuple(rates[0].shape[1:]), np.float64)
+        s = np.zeros((self.k,) + tuple(sel[0].shape[1:]), np.float64)
+        for b in sorted({lay.owner(k)[0] for k in fired_k}):
+            r[lay.slices[b]], s[lay.slices[b]] = _stats_host(rates[b], sel[b])
+        return r, s
+
     # -- data plane ---------------------------------------------------------
 
     def _check_chunk(self, chunk: Chunk) -> Chunk:
@@ -627,16 +707,28 @@ class Rulebook:
 
     def _device_chunk(self, chunk: Chunk, t0: float, t1: float):
         """The chunk and its clock on the device, in one copy (tensors
-        already on the device are used as they are)."""
+        already on the device are used as they are).  On a mesh,
+        ``Blocks``: each block's slice of the chunk and the clock go
+        straight to its device in one copy."""
         clock = np.asarray([t0, t1], np.float32)
+        lay = self.layout
         if isinstance(chunk.type_id, torch.Tensor):
-            dchunk = Chunk(*(x.to(self.device) for x in chunk))
-            t01 = torch.as_tensor(clock, device=self.device)
+            if lay is None:
+                up = [[x.to(self.device) for x in chunk]
+                      + [torch.as_tensor(clock, device=self.device)]]
+            else:
+                up = [[x[sl].to(dev) for x in chunk]
+                      + [torch.as_tensor(clock, device=dev)]
+                      for sl, dev in zip(lay.slices, lay.devices)]
+        elif lay is None:
+            up = [_upload([np.asarray(x) for x in chunk] + [clock],
+                          self.device)]
         else:
-            *fields, t01 = _upload([np.asarray(x) for x in chunk] + [clock],
-                                   self.device)
-            dchunk = Chunk(*fields)
-        return dchunk, t01[0], t01[1]
+            up = lay.upload([np.asarray(x) for x in chunk], shared=[clock])
+        parts = [(Chunk(*u[:4]), u[4][0], u[4][1]) for u in up]
+        if lay is None:
+            return parts[0]
+        return tuple(Blocks(p[i] for p in parts) for i in range(3))
 
     def _accumulate(self, bucket: _Bucket, cnt, n_rows: int, out,
                     base=None) -> None:
@@ -677,9 +769,11 @@ class Rulebook:
              sel) = bucket.plane.step(bucket.state, bucket.monitor, dchunk,
                                       bucket.ops_d, bucket.share_d,
                                       bucket.plans_d, low, t0d, t1d)
-            # One coalesced counter (and flag) transfer per bucket per tick.
-            h = torch.cat([torch.stack(tuple(res)),
-                           violated.to(torch.int32)[None]]).cpu().numpy()
+            # One coalesced counter (and flag) transfer per bucket per tick
+            # (one per block on a mesh).
+            h = to_host(lambda r, v: torch.cat(
+                [torch.stack(tuple(r)), v.to(torch.int32)[None]]),
+                res, violated, axis=1)
             self._host_syncs += 1
             self._accumulate(bucket, h[:5, None], 1, out)
             if self.monitored:
@@ -687,7 +781,7 @@ class Rulebook:
                 if fired[0].size:
                     # One coalesced stats transfer serves every fired cell.
                     self._host_syncs += 1
-                    rates_h, sel_h = _stats_host(rates, sel)
+                    rates_h, sel_h = self._fired_stats(rates, sel, fired[0])
                     for k, q in zip(*fired):
                         self._replan_cell(bucket, int(k), int(q),
                                           rates_h, sel_h)
@@ -747,13 +841,20 @@ class Rulebook:
                 j = min(i + s_cap, n_chunks)
                 xs = xs_cache.get((i, j))
                 if xs is None:
-                    xs = xs_cache[(i, j)] = upload_rulebook_window(
+                    xs = xs_cache[(i, j)] = self._upload_window(
                         stack_rulebook_window(chunks[i:j], t0s[i:j],
-                                              t1s[i:j], s_cap),
-                        self.device)
+                                              t1s[i:j], s_cap))
                 i += self._scan_window(bucket, xs, j - i, out, i)
         self._chunks += n_chunks
         return out
+
+    def _upload_window(self, xs):
+        """A window's host inputs on the device in one copy; on a mesh
+        ``Blocks``, each block's slice on its device."""
+        if self.layout is None:
+            return upload_rulebook_window(xs, self.device)
+        return Blocks(upload_rulebook_window(x, dev) for x, dev in
+                      zip(block_xs(self.layout, xs), self.layout.devices))
 
     def _scan_window(self, bucket: _Bucket, xs, n_en: int,
                      out: np.ndarray, base: int) -> int:
@@ -784,7 +885,7 @@ class Rulebook:
             if fired[0].size:
                 # One coalesced stats transfer serves every fired cell.
                 self._host_syncs += 1
-                rates_h, sel_h = _stats_host(ys.rates[last], ys.sel[last])
+                rates_h, sel_h = self._fired_stats(*ys.stats(last), fired[0])
                 for k, q in zip(*fired):
                     self._replan_cell(bucket, int(k), int(q),
                                       rates_h, sel_h)
@@ -995,13 +1096,10 @@ class Rulebook:
         """Clear stream state (rings, monitors, counters); keep the planes,
         the rule set and deployed plans."""
         for bucket in self._buckets:
-            bucket.state = init_rule_buffers(
-                bucket.bspec, self.engine_cfg, self.k, bucket.q_cap,
-                self.device)
+            bucket.state = self._init_state(bucket.bspec, bucket.q_cap)
             if self.monitored:
-                bucket.monitor = init_rule_monitor(
-                    bucket.bspec, self.k, bucket.q_cap,
-                    self.config.estimator_buckets, self.device)
+                bucket.monitor = self._init_monitor(bucket.bspec,
+                                                    bucket.q_cap)
         for e in self._rules:
             e.matches = np.zeros((self.k,), np.int64)
             e.overflow = e.neg_rejected = e.closure_expansions = 0

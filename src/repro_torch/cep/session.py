@@ -471,9 +471,10 @@ def open(pattern, *, partitions: int = 1, plan: str = "auto",
                 flags and replan points bit-identical to per-chunk
                 stepping.
     mesh:       convenience override of ``config.mesh`` — shard the
-                K-partition axis over devices (``"auto"``, an int count,
-                or a ``distributed.CepMesh`` with a ``"cep"`` axis; one
-                device until the multi-GPU split lands, ROADMAP.md).
+                K-partition axis over devices (``"auto"``, an int count
+                of distinct devices, or a ``distributed.CepMesh`` with a
+                ``"cep"`` axis, whose devices may repeat): K/D partitions
+                per device, results equal to the unmeshed run.
     """
     config = config or RuntimeConfig()
     overrides = {}

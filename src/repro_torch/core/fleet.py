@@ -30,9 +30,12 @@ the brute-force oracle (``ref_engine``); see ``tests/test_torch_fleet.py``,
 ``tests/test_torch_session.py`` and ``tests/test_torch_superchunk.py``.
 
 ``FleetEngine(mesh=...)`` splits the K-partition axis over a ``cep``
-device mesh (``distributed.sharding``; D = 1 runs the sharded code path
-on one device).  Equal-config engines share their steps and windows
-through a process-wide memo (``_shared_trace``).
+device mesh (``distributed.sharding``): D blocks of K/D partitions, each
+run by its own engine on its own device, the state held as ``Blocks``
+between chunks; the runners read counters, flags and a flagged
+partition's statistics block by block.  Unmeshed equal-config engines
+share their steps and windows through a process-wide memo
+(``_shared_trace``).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ import torch
 
 from ..kernels import ops as kops
 from .adaptation import make_planner
+from ..distributed.sharding import (BlockLayout, Blocks, block_row,
+                                    map_blocks, resolve_cep_mesh, to_host)
 from .compat import warn_legacy
 from .decision import DecisionPolicy, InvariantPolicy
 from .engine import (NEG_INF, POS_INF, Buffers, Chunk, EngineConfig,
@@ -206,17 +211,22 @@ class FleetEngine:
     call; a plan matrix's device operands (an order matrix's strips, a tree
     matrix's slot program) are built once and cached while the matrix is
     deployed, so a deployed plan costs no host-to-device copy per chunk.
-    ``mesh`` (``distributed.sharding.resolve_cep_mesh``) splits K over
-    a ``cep`` device mesh.
+
+    ``mesh`` (``distributed.sharding.resolve_cep_mesh``) splits K over a
+    ``cep`` device mesh: the engine then holds one unmeshed engine per
+    block (``blocks``), built for the block's device with K/D partitions,
+    and every K-led value it takes or returns (state, monitor rings, plan
+    operands, lowered invariants, counters, flags) is ``Blocks``.  Per
+    call every block's inputs go up (each to its device) before any
+    block's step runs, so the blocks of distinct devices run at once.
     """
 
     _OPERANDS_CAP = 8
 
     def __init__(self, kind: str, pattern: Pattern, k: int,
                  cfg: EngineConfig = EngineConfig(),
-                 monitor_laplace: float = 1.0, mesh=None):
-        from ..distributed.sharding import resolve_cep_mesh
-
+                 monitor_laplace: float = 1.0, mesh=None,
+                 memo: bool = True):
         self.base = _make_engine(kind, pattern, cfg)
         self.kind = kind
         self.pattern = pattern
@@ -226,33 +236,40 @@ class FleetEngine:
         self.monitor_laplace = monitor_laplace
         # Partitions are independent, so sharding never changes semantics.
         self.mesh = resolve_cep_mesh(mesh, self.k, self.device)
+        self._memo = memo and self.mesh is None
+        self.layout = self.blocks = None
+        if self.mesh is not None:
+            self.layout = BlockLayout(self.mesh, self.k)
+            self.blocks = [
+                FleetEngine(kind, pattern, self.layout.kb,
+                            dataclasses.replace(cfg, device=str(dev)),
+                            monitor_laplace, memo=False)
+                for dev in self.layout.devices]
         self._process = _shared_trace(self._trace_key("plain"),
-                                      lambda: self._wrap(self.base.process))
+                                      lambda: self.base.process)
         self._mprocess = None  # monitored variant, built on first use
         self._operands: "OrderedDict[bytes, object]" = OrderedDict()
         self._scans = {}  # superchunk windows keyed by `monitored`
 
     def _trace_key(self, flavor):
-        """Memo key for the process-wide memo; None = don't share."""
-        if self.mesh is not None:
+        """Memo key for the process-wide memo; None = don't share (meshed
+        engines and their blocks, as in the reference)."""
+        if not self._memo:
             return None
         return (self.kind, self.pattern, self.k, _memo_config(self.cfg),
                 self.monitor_laplace, flavor)
 
-    def _wrap(self, fn):
-        """Shard the per-chunk step over the fleet mesh, if any."""
-        if self.mesh is None:
-            return fn
-        from ..distributed.sharding import shard_fleet_fn
-        return shard_fleet_fn(fn, self.mesh)
-
     # -- state -------------------------------------------------------------
 
     def init_state(self) -> Buffers:
+        if self.blocks is not None:
+            return Blocks(b.init_state() for b in self.blocks)
         return self.base.init_state(self.k)
 
     def init_monitor(self, num_buckets: int = 16) -> MonitorState:
         """Stacked per-partition statistics rings, on the device."""
+        if self.blocks is not None:
+            return Blocks(b.init_monitor(num_buckets) for b in self.blocks)
         return fleet_monitor_init(self.k, self.pattern.n, num_buckets,
                                   self.device)
 
@@ -275,7 +292,13 @@ class FleetEngine:
         return np.stack([self.plan_row(p) for p in plans])
 
     def plan_operands(self, plans):
+        """The plan matrix's device operands, cached per matrix; meshed,
+        ``Blocks`` of each block's operands, each block caching its own
+        rows (a replan re-uploads only the owning block's)."""
         rows = np.ascontiguousarray(self.plans_to_array(plans), np.int32)
+        if self.blocks is not None:
+            return Blocks(b.plan_operands(r) for b, r in
+                          zip(self.blocks, self.layout.split(rows)))
         key = rows.tobytes()
         ops = self._operands.get(key)
         if ops is None:
@@ -299,6 +322,23 @@ class FleetEngine:
         return Chunk(*(torch.as_tensor(np.asarray(x), device=self.device)
                        for x in chunks))
 
+    def _inputs(self, chunks: Chunk, plans, t0, t1, born_lo, born_hi):
+        """The step's device inputs: the chunk, the plan operands and the
+        clock."""
+        return (self._chunk(chunks), self.plan_operands(plans),
+                self._clock(t0, t1, born_lo, born_hi))
+
+    def _block_inputs(self, chunks: Chunk, plans, *clock):
+        """Every block's ``_inputs``, each block's slice of the chunk, the
+        plan rows and the per-partition clock uploaded to its device."""
+        lay = self.layout
+        parts = [lay.split(x) for x in chunks]
+        rows = lay.split(self.plans_to_array(plans))
+        clocks = [lay.split(v) for v in clock]
+        return [b._inputs(Chunk(*(p[i] for p in parts)), rows[i],
+                          *(c[i] for c in clocks))
+                for i, b in enumerate(self.blocks)]
+
     def process_chunk(self, state: Buffers, chunks: Chunk, plans,
                       t0, t1, born_lo=_NEG_INF, born_hi=_POS_INF
                       ) -> Tuple[Buffers, StepResult]:
@@ -308,9 +348,24 @@ class FleetEngine:
         scalars (shared clock) or per-partition ``(K,)`` vectors.  Returns
         the stacked state and a ``StepResult`` of ``(K,)`` counters.
         """
-        return self._process(
-            state, self._chunk(chunks), self.plan_operands(plans),
-            *self._clock(t0, t1, born_lo, born_hi))
+        if self.blocks is not None:
+            ins = Blocks(self._block_inputs(chunks, plans, t0, t1, born_lo,
+                                            born_hi))
+            return map_blocks(
+                lambda b, s, i: b._process(s, i[0], i[1], *i[2]),
+                Blocks(self.blocks), state, ins)
+        chunk, ops, clock = self._inputs(chunks, plans, t0, t1, born_lo,
+                                         born_hi)
+        return self._process(state, chunk, ops, *clock)
+
+    def _monitored(self):
+        if self._mprocess is None:
+            self._mprocess = _shared_trace(
+                self._trace_key("monitored"),
+                lambda: make_monitored_process(
+                    self.base.process, self.base.spec,
+                    self.monitor_laplace))
+        return self._mprocess
 
     def process_chunk_monitored(self, state: Buffers, monitor: MonitorState,
                                 chunks: Chunk, plans,
@@ -324,27 +379,34 @@ class FleetEngine:
         partition of ``rates``/``sel`` before moving it to the host, so
         host transfers stay proportional to violations, not to K.
         """
-        if self._mprocess is None:
-            self._mprocess = _shared_trace(
-                self._trace_key("monitored"),
-                lambda: self._wrap(make_monitored_process(
-                    self.base.process, self.base.spec,
-                    self.monitor_laplace)))
-        return self._mprocess(
-            state, monitor, self._chunk(chunks), self.plan_operands(plans),
-            lowered, *self._clock(t0, t1, born_lo, born_hi))
+        if self.blocks is not None:
+            ins = Blocks(self._block_inputs(chunks, plans, t0, t1, born_lo,
+                                            born_hi))
+            return map_blocks(
+                lambda b, s, m, i, low: b._monitored()(
+                    s, m, i[0], i[1], low, *i[2]),
+                Blocks(self.blocks), state, monitor, ins, lowered)
+        chunk, ops, clock = self._inputs(chunks, plans, t0, t1, born_lo,
+                                         born_hi)
+        return self._monitored()(state, monitor, chunk, ops, lowered, *clock)
 
     def superchunk_scan(self, monitored: bool):
         """The S-chunks-per-window function (``core.scan``), one per
         (engine config, monitored), shared through the memo.  Plans and
         invariants enter as data, so replans never capture a new graph;
-        an escalated fleet has another config and captures its own."""
-        from .scan import SuperchunkWindow
+        an escalated fleet has another config and captures its own.  A
+        meshed engine's window is its blocks' windows (``MeshWindow``)."""
+        from .scan import MeshWindow, SuperchunkWindow
 
         if monitored not in self._scans:
-            self._scans[monitored] = _shared_trace(
-                self._trace_key(("scan", monitored)),
-                lambda: SuperchunkWindow(self, monitored))
+            if self.blocks is not None:
+                self._scans[monitored] = MeshWindow(
+                    self.layout, [b.superchunk_scan(monitored)
+                                  for b in self.blocks])
+            else:
+                self._scans[monitored] = _shared_trace(
+                    self._trace_key(("scan", monitored)),
+                    lambda: SuperchunkWindow(self, monitored))
         return self._scans[monitored]
 
 
@@ -530,7 +592,7 @@ class FleetRunner:
             self._fleets[cap] = FleetEngine(
                 self.fleet.kind, self.pattern, self.k,
                 dataclasses.replace(self.engine_cfg, m_cap=cap),
-                monitor_laplace=self.laplace, mesh=self.mesh)
+                monitor_laplace=self.laplace, mesh=self.fleet.mesh)
         return self._fleets[cap]
 
     def _deploy(self, p: int, new_plan, t0: float, m: FleetMetrics) -> None:
@@ -583,9 +645,10 @@ class FleetRunner:
     # -- engine passes -----------------------------------------------------
 
     def _counters(self, res: StepResult) -> List[np.ndarray]:
-        """The five (K,) counters, in one device-to-host transfer."""
-        both = torch.stack(list(res)).cpu().numpy().astype(np.int64)
-        return list(both)
+        """The five (K,) counters, in one device-to-host transfer (one
+        per block on a mesh)."""
+        both = to_host(lambda r: torch.stack(list(r)), res, axis=1)
+        return list(both.astype(np.int64))
 
     def _pass_b(self, state, fc, out, migrating, chunk):
         """Pass B: old plans over an empty chunk (events already ingested)
@@ -708,10 +771,11 @@ class FleetRunner:
 
 def prime_invariant_policies(pattern: Pattern, planner, policies,
                              caps: Tuple[Optional[int], Optional[int]],
-                             device="cuda"):
+                             device="cuda", mesh=None):
     """Cold start: plans once from the uniform prior, installs that plan's
-    invariant set into every partition's policy, and lowers the rows.
-    Caps left as ``None`` default to the cold-start set's exact sizes
+    invariant set into every partition's policy, and lowers the rows (on
+    the blocks of ``mesh``, a resolved ``CepMesh``, if given).  Caps left
+    as ``None`` default to the cold-start set's exact sizes
     (stat-independent for the greedy planner).  Returns
     ``(plan0, StackedLowered, caps)``.
     """
@@ -723,7 +787,7 @@ def prime_invariant_policies(pattern: Pattern, planner, policies,
         lows.append(pol.compile(pattern.n, *caps))
     if caps[0] is None or caps[1] is None:
         caps = (lows[0].active.shape[0], lows[0].scale.shape[-1])
-    return plan0, StackedLowered(lows, device=device), caps
+    return plan0, StackedLowered(lows, device=device, mesh=mesh), caps
 
 
 def replan_flagged_partition(pattern: Pattern, planner, policy,
@@ -803,7 +867,7 @@ class MonitoredFleetRunner(FleetRunner):
         statistics arrive with the first chunks and fire the invariants."""
         plan0, self._low, self._caps = prime_invariant_policies(
             self.pattern, self.planner, self.policies, self._caps,
-            device=self.fleet.device)
+            device=self.fleet.device, mesh=self.fleet.mesh)
         row0 = self._plan_row(plan0)
         self._cur_rows = np.tile(row0, (self.k,) + (1,) * row0.ndim)
         self._old_rows = self._cur_rows.copy()
@@ -816,8 +880,9 @@ class MonitoredFleetRunner(FleetRunner):
         each costing exactly one statistics sync, so ``violations ==
         host_syncs == replans`` holds by construction."""
         for p in np.nonzero(pending)[0]:
-            stat = Stat(rates[p].cpu().numpy().astype(np.float64),
-                        sel[p].cpu().numpy().astype(np.float64))
+            stat = Stat(
+                block_row(rates, p).cpu().numpy().astype(np.float64),
+                block_row(sel, p).cpu().numpy().astype(np.float64))
             m.violations += 1
             m.host_syncs += 1
             new_plan = replan_flagged_partition(
@@ -879,8 +944,8 @@ class MonitoredFleetRunner(FleetRunner):
                 m.migration_partition_chunks += int(migrating.sum())
 
             # The rest of the per-chunk host round-trip: flags and drift.
-            pending = violated.cpu().numpy().copy()
-            m.last_drift = drift.cpu().numpy().astype(np.float32)
+            pending = to_host(lambda v: v, violated).copy()
+            m.last_drift = to_host(lambda x: x, drift).astype(np.float32)
             m.engine_time_s += time.perf_counter() - t_eng
             self._tally(m, fc, counters)
         self._save_carry(state, monitor, pending, rates_dev, sel_dev)
@@ -985,8 +1050,7 @@ class MonitoredFleetRunner(FleetRunner):
             pending = np.asarray(violated_h[last]).copy()
             # Device slices of the window's outputs (not a graph's output
             # buffers, which the next replay overwrites).
-            pend_rates = ys.rates[last]
-            pend_sel = ys.sel[last]
+            pend_rates, pend_sel = ys.stats(last)
             m.engine_time_s += time.perf_counter() - t_eng
             buf = buf[accept:]
         self._save_carry(state, monitor, pending, pend_rates, pend_sel)

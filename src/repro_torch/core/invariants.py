@@ -361,30 +361,50 @@ class StackedLowered:
     in place); the data plane consumes ``device()``, torch tensors on the
     fleet's device, uploaded once.  A later ``write_row`` patches that one
     row of the device copy in place instead of re-uploading all K rows.
+    With a ``mesh`` (``distributed.sharding``) ``device()`` is ``Blocks``,
+    each block's rows on its device, and a row write patches the block
+    that owns the partition.
     """
 
-    def __init__(self, rows: Sequence[LoweredInvariants], device="cuda"):
+    def __init__(self, rows: Sequence[LoweredInvariants], device="cuda",
+                 mesh=None):
         self.host = stack_lowered(rows)
         self.device_name = device
-        self._dev: Optional[LoweredInvariants] = None
+        self._layout = None
+        if mesh is not None:
+            from ..distributed.sharding import BlockLayout
+
+            self._layout = BlockLayout(mesh, self.host.active.shape[0])
+        self._dev = None
 
     def write_row(self, p: int, row: LoweredInvariants) -> None:
         write_lowered_row(self.host, p, row)
         if self._dev is not None:
             import torch
 
+            dev, i = self._dev, p
+            if self._layout is not None:
+                b, i = self._layout.owner(p)
+                dev = dev[b]
             for f in LoweredInvariants._fields:
-                dst = getattr(self._dev, f)
-                dst[p] = torch.as_tensor(np.asarray(getattr(row, f)),
+                dst = getattr(dev, f)
+                dst[i] = torch.as_tensor(np.asarray(getattr(row, f)),
                                          device=dst.device)
 
-    def device(self) -> LoweredInvariants:
+    def device(self):
         if self._dev is None:
             import torch
 
-            self._dev = LoweredInvariants(*(
-                torch.as_tensor(np.array(x), device=self.device_name)
-                for x in self.host))
+            if self._layout is not None:
+                from ..distributed.sharding import Blocks
+
+                self._dev = Blocks(
+                    LoweredInvariants(*b) for b in self._layout.upload(
+                        [np.array(x) for x in self.host]))
+            else:
+                self._dev = LoweredInvariants(*(
+                    torch.as_tensor(np.array(x), device=self.device_name)
+                    for x in self.host))
         return self._dev
 
 

@@ -45,6 +45,7 @@ equal Q independent engines (``tests/test_torch_rulebook.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -648,16 +649,23 @@ def _make_bucket_step(bspec: BucketSpec, cfg: EngineConfig,
 class RulebookPlane:
     """One bucket config's per-chunk plane, the value of
     :func:`make_rulebook_plane`'s memo entry: ``step(state, monitor,
-    chunk, ops, share, plans, lowered, t0, t1)``, sharded over the mesh
-    when one is given.  The rule capacity Qb is whatever the tensors it is
-    given hold.  The step runs eagerly; the superchunk window that
-    captures it is ``core.scan.make_rulebook_scan``'s.
+    chunk, ops, share, plans, lowered, t0, t1)``.  The rule capacity Qb
+    is whatever the tensors it is given hold.  The step runs eagerly; the
+    superchunk window that captures it is ``core.scan.make_rulebook_scan``'s.
+    With a mesh every argument is ``Blocks`` (``distributed.sharding``:
+    state, monitor, chunk, plans and lowered rows by partition block, the
+    rule rows, the lattice routing and the clock one copy per device),
+    and the step runs once per block, on the block's device.
     """
 
     def __init__(self, bspec: BucketSpec, cfg: EngineConfig,
                  monitored: bool, laplace: float = 1.0, mesh=None):
-        self.step = _shard_plane(
-            _make_bucket_step(bspec, cfg, monitored, laplace), mesh)
+        step = _make_bucket_step(bspec, cfg, monitored, laplace)
+        if mesh is not None:
+            from ..distributed.sharding import map_blocks
+
+            step = functools.partial(map_blocks, step)
+        self.step = step
 
 
 def make_rulebook_plane(bspec: BucketSpec, cfg: EngineConfig, k: int,
@@ -677,21 +685,6 @@ def make_rulebook_plane(bspec: BucketSpec, cfg: EngineConfig, k: int,
                  bool(monitored), float(laplace)))
     return _shared_trace(key, lambda: RulebookPlane(
         bspec, cfg, monitored, laplace, mesh))
-
-
-def _shard_plane(fn, mesh):
-    """Shard the bucket step over a 1-D "cep" mesh: state, monitor, chunk,
-    plans and lowered lead with K; the rule rows, the lattice routing and
-    the clock are fleet-wide (replicated).  ``sharding.shard_fleet_fn``
-    K-leads every argument, which the rulebook signature violates, so the
-    specs are spelled per argument here."""
-    if mesh is None:
-        return fn
-    from ..distributed.sharding import fleet_pspec, shard_map
-
-    kl = fleet_pspec()
-    return shard_map(fn, mesh, (kl, kl, kl, None, None, kl, kl, None, None),
-                     kl)
 
 
 # ---------------------------------------------------------------------------

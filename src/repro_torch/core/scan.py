@@ -59,7 +59,9 @@ window, its static tensors and its graphs, so a second session captures
 nothing.  Sharing is safe because a window copies its carry and inputs
 into the statics when it starts, and copies every replay's outputs out
 of the graph pool before the next replay; windows run one at a time
-(from one host thread).
+(from one host thread).  A meshed fleet or rulebook (``MeshWindow``,
+``MeshRulebookWindow``) runs one window per block instead, each with its
+own statics and graphs on its block's device, outside the memo.
 
 Launch counts.  A graph replay makes no kernel-wrapper call, so
 ``kernels.window_join.LAUNCHES`` does not move under replay; the launches
@@ -69,6 +71,7 @@ a capture records are added to ``GRAPH_LAUNCHES`` once per replay
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 from typing import Dict, NamedTuple, Optional, Sequence
@@ -76,6 +79,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..distributed.sharding import Blocks, map_blocks
 from ..kernels import window_join as _wj
 from .engine import NEG_INF, POS_INF, Buffers, Chunk, make_monitored_process
 from .stats import MonitorState
@@ -89,8 +93,10 @@ COUNTS: Dict[str, int] = {"windows": 0, "captures": 0, "replays": 0,
 _NEG_INF_BITS = int(np.float32(NEG_INF).view(np.int32))
 
 # One memory pool per CUDA device for every captured window step, so the
-# graphs of escalated fleets share their intermediates' memory.
+# graphs of escalated fleets share their intermediates' memory, and one
+# capture stream per device.
 _POOLS: Dict[int, object] = {}
+_STREAMS: Dict[int, object] = {}
 
 
 def reset_counts() -> None:
@@ -159,6 +165,31 @@ class SuperchunkOut(NamedTuple):
         h = self.head[:n].cpu().numpy()
         return HostOut(*(h[:, i] for i in range(5)), h[:, 5] != 0,
                        np.ascontiguousarray(h[:, 6]).view(np.float32))
+
+    def stats(self, s: int):
+        """``(rates, sel)`` at chunk ``s``, on the device (device slices
+        of the window's outputs, not a graph's output buffers, which the
+        next replay overwrites)."""
+        return self.rates[s], self.sel[s]
+
+
+class MeshOut(NamedTuple):
+    """A meshed window's outputs: each block's ``SuperchunkOut``, on its
+    device, read the same way.  ``host`` reads every block's head (one
+    transfer per block) and joins them along K; ``carry_after`` and
+    ``stats`` give ``Blocks``."""
+
+    blocks: tuple
+
+    def host(self, n: Optional[int] = None) -> HostOut:
+        hs = [o.host(n) for o in self.blocks]
+        return HostOut(*(np.concatenate(f, axis=1) for f in zip(*hs)))
+
+    def carry_after(self, s: int):
+        return map_blocks(lambda o: o.carry_after(s), Blocks(self.blocks))
+
+    def stats(self, s: int):
+        return map_blocks(lambda o: o.stats(s), Blocks(self.blocks))
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +385,13 @@ class _Carry:
         return buffers, monitor
 
 
+def _on(dev):
+    """``dev`` as the current CUDA device (a capture records, and a
+    replay launches, on the current device's stream); a no-op off CUDA."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
 def _capture(dev, step):
     """Capture ``step`` (a closure over static tensors) as a CUDA graph in
     the device's shared pool; returns ``(graph, outputs, launches)``.
@@ -364,12 +402,18 @@ def _capture(dev, step):
     garbage collector is held off during the capture: a collection there
     may free an earlier session's graph (sessions and their windows form
     reference cycles), and destroying a graph while a stream captures
-    invalidates the capture.
+    invalidates the capture.  The capture stream is the device's own
+    (``_STREAMS``): ``torch.cuda.graph``'s default is one stream for the
+    whole process, made on the first capture's device, and a capture on
+    another device's stream than its tensors' fails.
     """
     _wj.load_library()
     pool = _POOLS.get(dev.index)
     if pool is None:
         pool = _POOLS[dev.index] = torch.cuda.graph_pool_handle()
+    stream = _STREAMS.get(dev.index)
+    if stream is None:
+        stream = _STREAMS[dev.index] = torch.cuda.Stream(device=dev)
     side = torch.cuda.Stream(device=dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
@@ -381,7 +425,7 @@ def _capture(dev, step):
     gc.disable()
     try:
         with _wj.capturing() as launches:
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
                 outs = step()
     finally:
         if gc_was_on:
@@ -421,14 +465,12 @@ class SuperchunkWindow:
     tables inside the window, keyed by the shapes of the static tensors
     (and graphs also by variant: pass A, pass A + B), so an equal-config
     engine that shares the window through the fleet's memo replays its
-    graphs.  A meshed fleet's window runs its per-chunk body through
-    ``distributed.sharding.shard_fleet_scan``: the blocks' steps are
-    captured in the one graph of each shape.
+    graphs.  A call is ``stage`` (the host inputs go up) then ``launch``
+    (the replays); a meshed fleet's window (``MeshWindow``) stages every
+    block before it launches any.
     """
 
     def __init__(self, fleet, monitored: bool):
-        from ..distributed.sharding import shard_fleet_scan
-
         self.fleet = fleet
         self.monitored = bool(monitored)
         base = fleet.base
@@ -436,11 +478,8 @@ class SuperchunkWindow:
         self._mprocess = (make_monitored_process(
             base.process, base.spec, fleet.monitor_laplace)
             if monitored else None)
-        self._bodies = {}
-        for with_b in (False, True):
-            body = functools.partial(self._body, with_b)
-            self._bodies[with_b] = (body if fleet.mesh is None
-                                    else shard_fleet_scan(body, fleet.mesh))
+        self._bodies = {with_b: functools.partial(self._body, with_b)
+                        for with_b in (False, True)}
         self._statics: Dict[tuple, _Statics] = {}
         self._graphs: Dict[tuple, tuple] = {}
 
@@ -539,20 +578,38 @@ class SuperchunkWindow:
 
     def __call__(self, buffers, monitor, cur_rows, old_rows, lowered,
                  xs: SuperchunkXs):
+        return self.launch(buffers, monitor, lowered,
+                           self.stage(cur_rows, old_rows, xs))
+
+    def stage(self, cur_rows, old_rows, xs: SuperchunkXs):
+        """The window's host inputs on the device: its chunks and control
+        in one host-to-device copy, and the plan operands (the fleet's
+        cache: an upload only when the rows changed)."""
         fleet = self.fleet
         n_run = int(np.asarray(xs.enabled).sum())
         if n_run == 0 or not np.asarray(xs.enabled)[:n_run].all():
             raise ValueError("enabled chunks must be a non-empty prefix of "
                              "the window")
-        # The window's chunks and control: one host-to-device copy.
         up = _upload([*xs.chunk, xs.t0, xs.t1, xs.born_lo, xs.migrating,
                       xs.old_sel], fleet.device)
-        chunk, (t0, t1, born_lo, migrating, old_sel) = Chunk(*up[:4]), up[4:]
-        cur_ops = fleet.plan_operands(cur_rows)
-        old_ops = fleet.plan_operands(old_rows)
+        with_b = np.asarray(xs.migrating)[:n_run].any(axis=1)
+        return (Chunk(*up[:4]), up[4:], fleet.plan_operands(cur_rows),
+                fleet.plan_operands(old_rows), with_b)
+
+    def launch(self, buffers, monitor, lowered, staged):
+        """The window's replays (eager steps on the CPU) over ``stage``'s
+        inputs, with the fleet's device current; no host sync after a
+        graph's first capture."""
+        with _on(self.fleet.device):
+            return self._launch(buffers, monitor, lowered, staged)
+
+    def _launch(self, buffers, monitor, lowered, staged):
+        fleet = self.fleet
+        chunk, (t0, t1, born_lo, migrating, old_sel), cur_ops, old_ops, \
+            with_b = staged
+        n_run = len(with_b)
         key, st = self._get_statics(buffers, monitor, cur_ops, old_ops,
                                     lowered, chunk)
-        with_b = np.asarray(xs.migrating)[:n_run].any(axis=1)
         on_cuda = fleet.device.type == "cuda"
         graphs = ({b: self._graph(key, st, b) for b in set(with_b.tolist())}
                   if on_cuda else {})
@@ -565,7 +622,7 @@ class SuperchunkWindow:
         _copy_into(st.cur_ops, cur_ops)
         _copy_into(st.old_ops, old_ops)
 
-        s_len, k, n = len(xs.t0), fleet.k, fleet.pattern.n
+        s_len, k, n = len(t0), fleet.k, fleet.pattern.n
         dev = fleet.device
         head = torch.zeros((s_len, 7, k), dtype=torch.int32, device=dev)
         head[:, 6] = _NEG_INF_BITS
@@ -595,6 +652,44 @@ class SuperchunkWindow:
         COUNTS["windows"] += 1
         ys = SuperchunkOut(head, rates, sel, snaps, carry)
         return (*ys.carry_after(n_run - 1), ys)
+
+
+def block_xs(layout, xs):
+    """Each block's window inputs (a ``SuperchunkXs`` or a
+    ``RulebookXs`` of host arrays): leaves led by (S, K) cut along K, the
+    clock and the gate, led by S alone, shared."""
+    chunk = [layout.split(c, axis=1) for c in xs.chunk]
+    rest = [layout.split(x, axis=1) for x in xs[1:]]
+    return [type(xs)(Chunk(*(c[i] for c in chunk)), *(r[i] for r in rest))
+            for i in range(layout.d)]
+
+
+class MeshWindow:
+    """A meshed fleet's window: one ``SuperchunkWindow`` per block, each
+    with its own statics and CUDA graphs on its block's device, so no
+    graph spans two devices.  Same call as a ``SuperchunkWindow``, with
+    ``Blocks`` for the carry and the lowered rows and host (K, ...) plan
+    rows and window inputs, which are cut per block here.  Every block is
+    staged (its slice of the window uploaded to its device) before any
+    block launches, and every block launches its replays before the host
+    reads any back; the result is ``(Blocks, Blocks or None, MeshOut)``.
+    """
+
+    def __init__(self, layout, windows):
+        self.layout = layout
+        self.windows = list(windows)
+
+    def __call__(self, buffers, monitor, cur_rows, old_rows, lowered,
+                 xs: SuperchunkXs):
+        lay = self.layout
+        cur, old = lay.split(cur_rows), lay.split(old_rows)
+        xs_b = block_xs(lay, xs)
+        staged = Blocks(w.stage(c, o, x) for w, c, o, x in
+                        zip(self.windows, cur, old, xs_b))
+        state, mon, outs = map_blocks(
+            lambda w, b, m, low, st: w.launch(b, m, low, st),
+            Blocks(self.windows), buffers, monitor, lowered, staged)
+        return state, mon, MeshOut(tuple(outs))
 
 
 # ---------------------------------------------------------------------------
@@ -681,19 +776,17 @@ class RulebookWindow:
     bucket growth does — and replayed per chunk; on the CPU it runs
     eagerly.  ``traces`` counts the shape signatures entered (one capture
     each on the card), the counterpart of the reference plane's retrace
-    counter.  A meshed window runs its per-chunk body through
-    ``_shard_rulebook_scan``.
+    counter.  A meshed rulebook's window is one such window per block
+    (``MeshRulebookWindow``).
     """
 
-    def __init__(self, bspec, cfg, monitored: bool, laplace: float = 1.0,
-                 mesh=None):
+    def __init__(self, bspec, cfg, monitored: bool, laplace: float = 1.0):
         from .multipattern import _make_bucket_step
 
         self.bspec = bspec
         self.monitored = bool(monitored)
         self.traces = 0
         self._bucket_step = _make_bucket_step(bspec, cfg, monitored, laplace)
-        self._body = _shard_rulebook_scan(self._chunk_body, mesh)
         self._statics: Dict[tuple, _RulebookStatics] = {}
         self._graphs: Dict[tuple, tuple] = {}
 
@@ -714,7 +807,7 @@ class RulebookWindow:
         """One chunk from the static inputs; writes the carry into ``st``
         and returns ``(head (7, K, Qb) i32, rates, sel)``."""
         carry = st.carry
-        state, monitor, (out, rates, sel) = self._body(
+        state, monitor, (out, rates, sel) = self._chunk_body(
             carry.buffers, carry.monitor, st.ops, st.share, st.plans,
             st.lowered, RulebookXs(st.chunk, st.t0, st.t1, None))
         _copy_into(carry.buffers, state)
@@ -724,6 +817,10 @@ class RulebookWindow:
 
     def __call__(self, state, monitor, ops, share, plans, lowered,
                  xs: RulebookXs):
+        with _on(state.ts.device):
+            return self._call(state, monitor, ops, share, plans, lowered, xs)
+
+    def _call(self, state, monitor, ops, share, plans, lowered, xs):
         monitored = self.monitored
         enabled = np.asarray(xs.enabled)
         n_run = int(enabled.sum())
@@ -794,34 +891,46 @@ class RulebookWindow:
         return (*ys.carry_after(n_run - 1), ys)
 
 
+class MeshRulebookWindow:
+    """A meshed rulebook's window: one ``RulebookWindow`` per block, each
+    with its own statics and graphs on its block's device.  Same call as
+    a ``RulebookWindow`` with ``Blocks`` throughout (``xs`` too: each
+    block's slice of the window, uploaded to its device); every block
+    launches its replays before the host reads any back.  Returns
+    ``(Blocks, Blocks or None, MeshOut)``."""
+
+    def __init__(self, windows):
+        self.windows = list(windows)
+
+    @property
+    def traces(self) -> int:
+        """Shape signatures entered (every block enters the same ones)."""
+        return max(w.traces for w in self.windows)
+
+    def __call__(self, state, monitor, ops, share, plans, lowered, xs):
+        state, monitor, outs = map_blocks(
+            lambda w, *a: w(*a), Blocks(self.windows), state, monitor, ops,
+            share, plans, lowered, xs)
+        return state, monitor, MeshOut(tuple(outs))
+
+
 def make_rulebook_scan(bspec, cfg, k: int, monitored: bool,
-                       laplace: float = 1.0, mesh=None) -> RulebookWindow:
+                       laplace: float = 1.0, mesh=None):
     """The bucket window of this config, from the process-wide memo.
 
     Like the per-chunk plane (``multipattern.make_rulebook_plane``) the
     key leaves out every capacity (Qb, lattice class counts, S): growing a
     bucket under superchunk re-enters the SAME window with a new shape —
     one capture, no new memo entry — and equal-config rulebooks share its
-    captures.  Meshed windows are never shared.
+    captures.  Meshed windows (one per block) are never shared.
     """
     from .fleet import _memo_config, _shared_trace
 
-    key = (None if mesh is not None
-           else ("rulebook-scan", bspec, _memo_config(cfg), int(k),
-                 bool(monitored), float(laplace)))
-    return _shared_trace(key, lambda: RulebookWindow(
-        bspec, cfg, monitored, laplace, mesh))
-
-
-def _shard_rulebook_scan(fn, mesh):
-    """Shard the rulebook window's per-chunk body over the 1-D "cep" mesh:
-    state, monitor, plans and lowered lead with K, ops/share are
-    fleet-wide (replicated), and ``x``'s chunk leads with K while its
-    clock and gate are replicated.  Partitions stay independent."""
-    if mesh is None:
-        return fn
-    from ..distributed.sharding import fleet_pspec, shard_map
-
-    kl = fleet_pspec()
-    x_spec = RulebookXs(chunk=kl, t0=None, t1=None, enabled=None)
-    return shard_map(fn, mesh, (kl, kl, None, None, kl, kl, x_spec), kl)
+    if mesh is not None:
+        return MeshRulebookWindow(
+            RulebookWindow(bspec, cfg, monitored, laplace)
+            for _ in mesh.devices)
+    return _shared_trace(
+        ("rulebook-scan", bspec, _memo_config(cfg), int(k), bool(monitored),
+         float(laplace)),
+        lambda: RulebookWindow(bspec, cfg, monitored, laplace))

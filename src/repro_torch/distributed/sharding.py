@@ -23,22 +23,27 @@ reference does without rules: eager code has no compiler to constrain.
 the K-partition axis (stacked ring buffers, statistics rings, plan rows,
 lowered invariants, per-partition counters), and partitions are
 independent streams, so the fleet maps onto a 1-D device mesh with ONE
-rule: split K over the ``cep`` axis into D contiguous blocks, replicate
-the rest (the shared chunk clock, a rulebook's rule rows and lattice
-routing), run the step once per block and concatenate the K-led outputs.
-No collective is needed.
+rule: split K over the ``cep`` axis into D contiguous blocks of K/D,
+block ``i`` on ``mesh.devices[i]``, and replicate the rest (the shared
+chunk clock, a rulebook's rule rows and lattice routing).  No collective
+is needed.  The reference does this with ``shard_map`` over one global
+array; the port keeps each block resident on its own device as a
+:class:`Blocks` value and runs one step per block (``core/fleet.py``:
+one engine per block, built for the block's device; ``core/scan.py``:
+one window, with its own statics and CUDA graphs, per block).  Per chunk
+only each block's slice of the chunk goes up, straight to its device,
+and the host reads its counters, flags and drift back block by block
+(``to_host``, ``block_row``): no state is gathered to one device or
+copied between devices.
 
-``shard_map`` is that rule for a torch function: its specs give, per
-argument, ``fleet_pspec()`` (split the leading axis; a NamedTuple
-argument may give one spec per field) or None (replicated).  At D = 1 the
-single block is a view of the whole argument and the output is the
-block's own, so a D = 1 mesh runs the sharded code path with no copy.
-
-D > 1 waits for a host with more than one GPU (ROADMAP.md, Queue 1):
-``resolve_cep_mesh`` raises ``NotImplementedError`` for it, after the
-device-count check, since no run here can check a multi-GPU split (the
-blocks would also have to be placed on, and gathered from, the mesh's
-devices).
+``mesh=`` is ``None``, ``"auto"`` (every distinct device of the plane's
+type), an int count of distinct devices, or a :class:`CepMesh`.  Only an
+explicit ``CepMesh`` may repeat a device (``CepMesh((cpu, cpu))``,
+``CepMesh((cuda:0,) * 4)``): D blocks then share one device.  That is the
+port's counterpart of the reference's
+``--xla_force_host_platform_device_count``, and the only way to run
+D > 1 on the CPU or on one card.  A D = 1 mesh runs the blocked code
+path with one block.
 """
 
 from __future__ import annotations
@@ -48,9 +53,8 @@ import dataclasses
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
-
-from ..core.engine import canonical_device
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -223,7 +227,7 @@ CEP_AXIS = "cep"
 class CepMesh:
     """A 1-D device mesh: a tuple of ``torch.device``s and the name of its
     one axis (``shape[name]`` is the device count D, as on a jax
-    ``Mesh``)."""
+    ``Mesh``).  A device may repeat: D blocks then share it."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = (CEP_AXIS,)
@@ -269,11 +273,15 @@ def resolve_cep_mesh(mesh, k: int, device="cuda") -> Optional[CepMesh]:
 
     Accepts ``None`` (no sharding), ``"auto"`` (every device of the data
     plane's type), an ``int`` device count, or a prebuilt
-    :class:`CepMesh` carrying a ``cep`` axis.  The mesh must lie on the
-    data plane's ``device``, and the K-partition axis must divide evenly
-    over it: an uneven split would silently unbalance per-partition
-    semantics, so it raises, as in the reference.
+    :class:`CepMesh` carrying a ``cep`` axis.  ``"auto"`` and an int count
+    distinct devices, so ``mesh=2`` on a one-GPU host raises, as in the
+    reference.  Every device of the mesh is of the data plane's type, and
+    the K-partition axis must divide evenly over it: an uneven split would
+    silently unbalance per-partition semantics, so it raises, as in the
+    reference.  A bare ``cuda`` device gets its index.
     """
+    from ..core.engine import canonical_device
+
     if mesh is None:
         return None
     if isinstance(mesh, CepMesh):
@@ -298,98 +306,123 @@ def resolve_cep_mesh(mesh, k: int, device="cuda") -> Optional[CepMesh]:
         raise ValueError(
             f"K={k} partitions do not divide over {d} devices; choose K "
             f"as a multiple of the mesh size")
-    if d > 1:
-        raise NotImplementedError(
-            f"a {d}-device cep mesh: splitting K over several GPUs waits "
-            "for a multi-GPU host (ROADMAP.md, Queue 1); use mesh=1, "
-            "'auto' on one GPU, or None")
-    if canonical_device(m.devices[0]) != plane:
-        raise ValueError(f"mesh device {m.devices[0]} is not the data "
-                         f"plane's device {plane}")
-    return m
-
-
-def fleet_pspec() -> int:
-    """The one CEP partition rule as a spec: split the leading axis (K) of
-    every leaf.  The port's windows shard their per-chunk step, so every
-    sharded leaf leads with K (the reference's scan layout, (S, K), has no
-    counterpart)."""
-    return 0
+    devs = tuple(canonical_device(x) for x in m.devices)
+    return m if devs == m.devices else CepMesh(devs, m.axis_names)
 
 
 # ---------------------------------------------------------------------------
-# shard_map for torch functions
+# Blocks: a meshed fleet's K-led values, one block per mesh device
 # ---------------------------------------------------------------------------
 
 
-def _rebuild(like, fields):
-    return type(like)(*fields) if hasattr(like, "_fields") else tuple(fields)
+class Blocks(tuple):
+    """A K-led value of a meshed fleet as its D blocks: block ``i`` holds
+    partitions ``[i K/D, (i+1) K/D)`` on ``mesh.devices[i]``.
+
+    Every K-led leaf a meshed fleet carries between chunks is held so:
+    ring buffers, statistics rings, plan operands, lowered invariant rows,
+    a rulebook's state and plan rows.  A replicated value (a rulebook's
+    rule rows, lattice routing) is held as one copy per device, shared by
+    the blocks on it.  No block is joined with the others or moved to
+    another device: the host reads them block by block (``to_host``,
+    ``block_row``)."""
+
+    __slots__ = ()
+
+    def __repr__(self):
+        return f"Blocks{tuple.__repr__(self)}"
 
 
-def _split(x, spec, d: int) -> list:
-    """``x``'s D per-device pieces under ``spec``: ``x`` itself D times
-    when replicated (None), else every tensor leaf cut into D contiguous
-    blocks along axis ``spec`` (views); a tuple spec gives one spec per
-    field of a NamedTuple ``x``."""
-    if x is None or spec is None:
-        return [x] * d
-    if isinstance(x, torch.Tensor):
-        return list(torch.chunk(x, d, dim=spec))
-    specs = spec if isinstance(spec, tuple) else (spec,) * len(x)
-    parts = [_split(f, s, d) for f, s in zip(x, specs)]
-    return [_rebuild(x, [p[i] for p in parts]) for i in range(d)]
+def map_blocks(fn, *args):
+    """``fn`` once per block, in block order: a ``Blocks`` argument gives
+    its block, any other is passed to every block as it is (None, or a
+    host value).  ``fn`` returns a tuple; each position comes back as
+    ``Blocks`` (None where every block returned None)."""
+    d = next(len(a) for a in args if isinstance(a, Blocks))
+    outs = [fn(*(a[i] if isinstance(a, Blocks) else a for a in args))
+            for i in range(d)]
+    return tuple(None if all(o[j] is None for o in outs)
+                 else Blocks(o[j] for o in outs)
+                 for j in range(len(outs[0])))
 
 
-def _concat(parts: list, spec):
-    """The inverse of ``_split``: the blocks' outputs joined along axis
-    ``spec``, or the first block's for a replicated output."""
-    first = parts[0]
-    if first is None or spec is None:
-        return first
-    if isinstance(first, torch.Tensor):
-        return first if len(parts) == 1 else torch.cat(parts, dim=spec)
-    specs = spec if isinstance(spec, tuple) else (spec,) * len(first)
-    return _rebuild(first, [_concat([p[i] for p in parts], s)
-                            for i, s in enumerate(specs)])
+def per_block(fn, x):
+    """``fn(x)``, or ``Blocks`` of ``fn`` of each block of a ``Blocks``
+    ``x`` (once for a block shared by several, as a replica is)."""
+    if not isinstance(x, Blocks):
+        return fn(x)
+    done = {}
+    for p in x:
+        if id(p) not in done:
+            done[id(p)] = fn(p)
+    return Blocks(done[id(p)] for p in x)
 
 
-def shard_map(fn, mesh: CepMesh, in_specs, out_specs):
-    """``fn`` run once per block of the mesh's ``cep`` axis: each argument
-    split under its entry of ``in_specs`` (a tuple, one per argument, or
-    one spec for all), the outputs joined under ``out_specs`` (one spec,
-    or one per output)."""
-    d = mesh.shape[CEP_AXIS]
-
-    def sharded(*args):
-        specs = (in_specs if isinstance(in_specs, tuple)
-                 else (in_specs,) * len(args))
-        pieces = [_split(a, s, d) for a, s in zip(args, specs)]
-        return _concat([fn(*(p[i] for p in pieces)) for i in range(d)],
-                       out_specs)
-
-    return sharded
+def to_host(fn, *args, axis: int = 0) -> np.ndarray:
+    """``fn(*args)``, a tensor, as numpy.  On ``Blocks`` arguments ``fn``
+    runs per block (``map_blocks``' rule) and each block's result is read
+    in its own device-to-host transfer, the blocks joined along ``axis``
+    (where K lies in ``fn``'s result)."""
+    if not any(isinstance(a, Blocks) for a in args):
+        return fn(*args).cpu().numpy()
+    parts = map_blocks(lambda *xs: (fn(*xs),), *args)[0]
+    return np.concatenate([p.cpu().numpy() for p in parts], axis=axis)
 
 
-def shard_fleet_fn(fn, mesh: CepMesh):
-    """Shard a per-chunk fleet step: every argument and output leads with
-    K (the plain ``process(buffers, chunk, plan, t0, t1, born_lo,
-    born_hi)`` and the monitored step, whose clocks are (K,) vectors)."""
-    return shard_map(fn, mesh, fleet_pspec(), fleet_pspec())
+def block_row(x, p: int):
+    """Partition ``p``'s row of a K-led tensor: from the block that owns
+    it when ``x`` is ``Blocks``."""
+    if not isinstance(x, Blocks):
+        return x[p]
+    kb = x[0].shape[0]
+    return x[p // kb][p % kb]
 
 
-def shard_fleet_scan(body, mesh: CepMesh):
-    """Shard a window's per-chunk body.
+class BlockLayout:
+    """Where a meshed fleet's partitions live: K split into D contiguous
+    blocks of K/D, block ``i`` on ``mesh.devices[i]``."""
 
-    Signature: ``body(buffers, monitor, cur_ops, old_ops, lowered, x) ->
-    (buffers, monitor, y)``, ``x`` one chunk's row of a ``SuperchunkXs``.
-    State, plan operands and lowered invariants lead with K, and so do
-    ``x``'s chunk and migration control; its shared chunk clock and the
-    ``enabled`` gate are replicated, so every block runs the same chunk.
-    ``y`` leads with K.
-    """
-    from ..core.scan import SuperchunkXs
+    def __init__(self, mesh: CepMesh, k: int):
+        self.devices = tuple(mesh.devices)
+        self.d = len(self.devices)
+        self.kb = k // self.d
+        self.slices = tuple(slice(i * self.kb, (i + 1) * self.kb)
+                            for i in range(self.d))
 
-    kl = fleet_pspec()
-    x_spec = SuperchunkXs(chunk=kl, t0=None, t1=None, enabled=None,
-                          born_lo=kl, migrating=kl, old_sel=kl)
-    return shard_map(body, mesh, (kl, kl, kl, kl, kl, x_spec), kl)
+    def owner(self, p: int) -> Tuple[int, int]:
+        """(block, row in the block) of partition ``p``."""
+        return divmod(int(p), self.kb)
+
+    def split(self, x, axis: int = 0) -> list:
+        """A K-led host array's D blocks (views); a scalar, or an array
+        whose ``axis`` does not exist, is every block's."""
+        a = np.asarray(x)
+        if a.ndim <= axis:
+            return [x] * self.d
+        return [a[(slice(None),) * axis + (s,)] for s in self.slices]
+
+    def upload(self, arrays: Sequence, shared: Sequence = ()) -> "Blocks":
+        """K-led host arrays as ``Blocks`` of lists of tensors: each block's
+        slices, followed by the ``shared`` arrays whole, go straight to its
+        device in one host-to-device copy."""
+        from ..core.scan import _upload
+
+        per = [self.split(a) for a in arrays]
+        return Blocks(_upload([p[i] for p in per] + list(shared), dev)
+                      for i, dev in enumerate(self.devices))
+
+    def replicate(self, arrays: Sequence) -> "Blocks":
+        """Host arrays placed once per device (one copy each), as
+        ``Blocks`` of lists of tensors: blocks on one device share it."""
+        from ..core.scan import _upload
+
+        placed: Dict[torch.device, list] = {}
+        for dev in self.devices:
+            if dev not in placed:
+                placed[dev] = _upload(arrays, dev)
+        return Blocks(placed[dev] for dev in self.devices)
+
+    def build(self, fn) -> "Blocks":
+        """``Blocks(fn(K/D, device) for each block)``: a K-led value made
+        on the blocks' devices."""
+        return Blocks(fn(self.kb, dev) for dev in self.devices)

@@ -27,7 +27,8 @@ batch — host work is O(violations), not O(K·stats).
 card one captured CUDA graph replay per chunk and one readback per window;
 the monitored front cuts a window at a mid-window flag, so it equals
 looping ``process_chunk``.  Both fronts take ``mesh=`` (the fleet's
-``cep`` device mesh).
+``cep`` device mesh): the state, the monitor rings and the lowered rows
+are then ``Blocks``, one per mesh device, read block by block.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from ..core.fleet import (FleetEngine, prime_invariant_policies,
                           replan_flagged_partition, route_events)
 from ..core.patterns import Pattern
 from ..core.stats import Stat
+from ..distributed.sharding import block_row, resolve_cep_mesh, to_host
 from ..models.config import ModelConfig
 from ..models.model import Cache, Model
 from ..models.params import load_params
@@ -175,10 +177,12 @@ class CEPFleetServingEngine:
         return chunk
 
     def _accumulate(self, res) -> np.ndarray:
-        # One device-to-host transfer for the four counters.
-        full, neg, clo, ov = torch.stack(
-            [res.full_matches, res.neg_rejected, res.closure_expansions,
-             res.overflow]).cpu().numpy().astype(np.int64)
+        # One device-to-host transfer for the four counters (per block on
+        # a mesh).
+        full, neg, clo, ov = to_host(
+            lambda r: torch.stack([r.full_matches, r.neg_rejected,
+                                   r.closure_expansions, r.overflow]),
+            res, axis=1).astype(np.int64)
         self.matches += full
         self.neg_rejected += neg
         self.closure_expansions += clo
@@ -286,12 +290,14 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
         kind = kind or ("order" if planner == "greedy" else "tree")
         self.policies = [InvariantPolicy(**(policy_kw or {}))
                          for _ in range(k)]
+        mesh = resolve_cep_mesh(mesh, k, resolve_device(engine_cfg.device))
         plan0, self._low, self._caps = prime_invariant_policies(
             pattern, self.planner, self.policies, (max_inv, max_terms),
-            device=engine_cfg.device)
+            device=engine_cfg.device, mesh=mesh)
         super().__init__(pattern, k, plan0, engine_cfg, kind, chunk_cap,
                          laplace=laplace, superchunk=superchunk, mesh=mesh)
         self.plans = [plan0] * k
+        self.monitor_buckets = monitor_buckets
         self.monitor = self.fleet.init_monitor(monitor_buckets)
         self.violations = np.zeros(k, np.int64)
         self.replans = np.zeros(k, np.int64)
@@ -303,7 +309,7 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
         """Clear stream state, monitor rings and counters; deployed plan
         rows and the lowered invariant rows survive."""
         super().reset()
-        self.monitor = self.fleet.init_monitor(self.monitor.counts.shape[1])
+        self.monitor = self.fleet.init_monitor(self.monitor_buckets)
         self.violations[:] = 0
         self.replans[:] = 0
         self.host_syncs = 0
@@ -326,8 +332,9 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
         for p in np.nonzero(np.asarray(fired_mask))[0]:
             self.violations[p] += 1
             self.host_syncs += 1
-            stat = Stat(rates[p].cpu().numpy().astype(np.float64),
-                        sel[p].cpu().numpy().astype(np.float64))
+            stat = Stat(
+                block_row(rates, p).cpu().numpy().astype(np.float64),
+                block_row(sel, p).cpu().numpy().astype(np.float64))
             new_plan = replan_flagged_partition(
                 self.pattern, self.planner, self.policies[p],
                 self._low, p, stat, self._caps)
@@ -343,9 +350,10 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
                 self.state, self.monitor, chunk, self._rows,
                 self._low.device(), t0, t1)
         full = self._accumulate(res)
-        # The flags and the drift in one transfer.
-        vd = torch.stack([violated.to(torch.float32),
-                          drift.to(torch.float32)]).cpu().numpy()
+        # The flags and the drift in one transfer (per block on a mesh).
+        vd = to_host(lambda v, d: torch.stack([v.to(torch.float32),
+                                               d.to(torch.float32)]),
+                     violated, drift, axis=1)
         self.last_drift = vd[1].astype(np.float32)
         self._apply_flags(vd[0] > 0.5, rates, sel)
         return full
@@ -391,7 +399,6 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
                 (h.full, h.neg, h.closure, h.overflow), accept)
             last = accept - 1
             self.last_drift = np.asarray(h.drift[last], np.float32)
-            self._apply_flags(h.violated[last], ys.rates[last],
-                              ys.sel[last])
+            self._apply_flags(h.violated[last], *ys.stats(last))
             i += accept
         return out

@@ -217,12 +217,18 @@ def test_plan_resolution_and_deferred_features():
             streams(1))
     with pytest.raises(ValueError, match="superchunk"):
         RuntimeConfig(device="cpu", superchunk=0)
-    # A D=1 mesh opens (tests/test_torch_sharding.py runs it); a split
-    # over two devices waits for a multi-GPU host.
+    # A D=1 mesh opens (tests/test_torch_sharding.py runs it), and so
+    # does a split over two blocks that share the CPU: each block's state
+    # on its mesh device (tests/test_torch_mesh.py runs every front).
     assert cep.open(rule(P), plan="order", config=cfg, mesh="auto")
     two = CepMesh((torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cep.open(rule(P), partitions=2, plan="order", config=cfg, mesh=two)
+    sess = cep.open(rule(P), partitions=2, plan="order", config=cfg,
+                    mesh=two)
+    eng = sess._ensure_serving()
+    assert eng.fleet.mesh.shape == {"cep": 2}
+    assert [b.ts.device for b in eng.state] == list(two.devices)
+    with pytest.raises(ValueError, match="devices"):
+        cep.open(rule(P), partitions=2, plan="order", config=cfg, mesh=2)
     assert RuntimeConfig().device == "cuda"
 
 

@@ -1,9 +1,9 @@
 """The port's ``cep`` device mesh against the JAX package's, on the CPU.
 
 ``repro_torch.distributed.sharding`` splits the K-partition axis over a
-1-D mesh (``shard_map``: K-led arguments cut into D contiguous blocks,
-the rest replicated, the blocks' outputs concatenated).  Partitions are
-independent, so a meshed run must equal the unmeshed one count for
+1-D mesh: D contiguous blocks of K/D partitions, each resident on its
+mesh device and run by its own engine, the rest replicated.  Partitions
+are independent, so a meshed run must equal the unmeshed one count for
 count, and both the JAX package's run (whose own tests hold its meshed
 runs equal to its per-chunk ones): the fleet runner with
 ``superchunk=8`` (``tests/test_superchunk.py::test_sharded_d1_run_smoke``),
@@ -13,10 +13,11 @@ and the rulebook per chunk and in windows
 ``tests/test_rulebook_superchunk.py::test_superchunk_mesh_d1_matches``),
 all at D = 1 (one CPU).  ``resolve_cep_mesh`` keeps the reference's
 errors (``test_mesh_validation``) and adds the port's: a mesh on another
-device type than the data plane, and D > 1 (a multi-GPU split, not
-verifiable on one card).  The split rule itself is held at D = 2 over two
-CPU blocks through ``shard_fleet_fn`` directly.  On a GPU, meshed windows
-on the card equal the unmeshed ones.
+device type than the data plane; an explicit mesh may repeat a device.
+The split rule itself is held at D = 2 over two CPU blocks through the
+meshed ``FleetEngine``'s step directly (D > 1 on every front:
+``tests/test_torch_mesh.py``).  On a GPU, meshed windows on the card
+equal the unmeshed ones.
 """
 
 import jax
@@ -36,8 +37,8 @@ from repro_torch.cep import P, RuntimeConfig, open_rulebook
 from repro_torch.core import fleet
 from repro_torch.core.decision import InvariantPolicy
 from repro_torch.core.engine import EngineConfig
-from repro_torch.distributed import (CepMesh, cep_mesh, resolve_cep_mesh,
-                                     shard_fleet_fn)
+from repro_torch.distributed import (Blocks, CepMesh, cep_mesh,
+                                     resolve_cep_mesh)
 
 from test_torch_rulebook import CFG, K, jchunk, make_chunks, rule_pool
 from test_torch_superchunk import (CONFIG, assert_metrics_identical,
@@ -104,7 +105,7 @@ def jax_baseline():
 def test_mesh_validation():
     """``tests/test_superchunk.py::test_mesh_validation`` on the port: the
     same mesh sizes and errors as the JAX package, plus the port's device
-    check and its D > 1 refusal."""
+    check; an explicit mesh that repeats a device resolves."""
     d, jd = len(cep_mesh(device="cpu").devices), len(jax.devices())
     assert d == jd == 1
     mesh = cep_mesh(device="cpu")
@@ -131,8 +132,8 @@ def test_mesh_validation():
     two = CepMesh((CPU, CPU))
     with pytest.raises(ValueError, match="divide"):
         resolve_cep_mesh(two, 3, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_cep_mesh(two, 4, "cpu")
+    assert resolve_cep_mesh(two, 4, "cpu") is two
+    assert resolve_cep_mesh(two, 4, "cpu").shape == {"cep": 2}
     # The mesh lies on the data plane's device type, either way round.
     with pytest.raises(ValueError, match="device type"):
         resolve_cep_mesh(mesh, 4, "cuda")
@@ -216,38 +217,52 @@ def _leaves(x):
     return [t for f in x for t in _leaves(f)]
 
 
+def _joined(x):
+    """A ``Blocks`` value's leaves joined along K on the host (a test's
+    view: the engine itself never joins its blocks)."""
+    if not isinstance(x, Blocks):
+        return _leaves(x)
+    parts = [_leaves(p) for p in x]
+    return [torch.cat(ls) for ls in zip(*parts)]
+
+
 @pytest.mark.parametrize("monitored", [False, True])
 def test_split_rule_over_two_blocks(monitored):
-    """``shard_fleet_fn`` at D = 2 (two CPU blocks of two partitions):
-    over the stream's first chunks, the per-chunk fleet step cut along K
-    and concatenated equals the whole step, every output leaf bit for
-    bit."""
+    """The meshed ``FleetEngine`` at D = 2 (two CPU blocks of two
+    partitions, each its own engine): over the stream's first chunks, the
+    per-chunk fleet step cut along K, its outputs joined, equals the whole
+    step, every output leaf bit for bit; the state stays two blocks."""
     runner = port_runner(4)
     runner._prime()
-    eng = runner.fleet
-    ops = eng.plan_operands(runner._cur_rows)
-    whole = (fleet.make_monitored_process(eng.base.process, eng.base.spec)
-             if monitored else eng.base.process)
-    split = shard_fleet_fn(whole, CepMesh((CPU, CPU)))
-    carries = {f: (eng.init_state(), eng.init_monitor(8))
+    whole = runner.fleet
+    split = fleet.FleetEngine(whole.kind, whole.pattern, 4, whole.cfg,
+                              mesh=CepMesh((CPU, CPU)))
+    rows = [pol.compile(whole.pattern.n, *runner._caps)
+            for pol in runner.policies]
+    low = {whole: runner._low.device(),
+           split: fleet.StackedLowered(rows, "cpu", split.mesh).device()}
+    carries = {f: (f.init_state(), f.init_monitor(8))
                for f in (whole, split)}
     matches = 0
     for fc in list(streams(4))[:6]:
-        chunk = eng._chunk(fc.chunk)
-        clock = eng._clock(fc.t0, fc.t1, fleet.NEG_INF, fleet.POS_INF)
         outs = {}
         for f, (state, monitor) in carries.items():
             if monitored:
-                outs[f] = f(state, monitor, chunk, ops,
-                            runner._low.device(), *clock)
+                outs[f] = f.process_chunk_monitored(
+                    state, monitor, fc.chunk, runner._cur_rows, low[f],
+                    fc.t0, fc.t1)
                 carries[f] = outs[f][:2]
             else:
-                outs[f] = f(state, chunk, ops, *clock)
+                outs[f] = f.process_chunk(state, fc.chunk, runner._cur_rows,
+                                          fc.t0, fc.t1)
                 carries[f] = (outs[f][0], monitor)
-        got, want = _leaves(outs[split]), _leaves(outs[whole])
+        got = [t for o in outs[split] for t in _joined(o)]
+        want = [t for o in outs[whole] for t in _leaves(o)]
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+        assert isinstance(carries[split][0], Blocks)
+        assert len(carries[split][0]) == 2
         matches += int(outs[whole][2 if monitored else 1]
                        .full_matches.sum())
     assert matches > 0
