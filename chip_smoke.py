@@ -288,7 +288,48 @@ with the medians and ranges.  ``python3 chip_smoke.py --mesh`` runs the
 device and build phases, the unmeshed per-chunk order, tree and rulebook
 runs of phase 4's stream, then phase 13 against them (on a host with
 several GPUs, the same paths across them), and prints the launches per
-path; like ``--bench`` it prints no ``ok`` line.
+path; like ``--bench`` it prints no ``ok`` line.  ``python3 chip_smoke.py
+--dist`` needs a host of 2 or more GPUs (with one it exits 1: "needs ≥ 2
+GPUs"; no phase falls back to a one-rank group): it runs the device and
+build phases, prints ``nvidia-smi topo -m`` and the GPU0 - GPU1 link
+(where the matrix cannot be read, GPU0's NVLink links),
+then the four "dist4" phases with one NCCL rank per GPU (4 ranks on a
+host of 4 or more; on 2 or 3 GPUs 2 ranks, data=2 and an EP mesh of (1,
+2), and it says that 4 was not run), each phase one spawn of ranks
+through ``launch.mesh.run_ranks`` (default group ``cpu:gloo,cuda:nccl``,
+rank r on ``cuda:r``; the gloo side passes ``backend="gloo"``), and the
+launches per path (0 each, summed over the ranks); no ``ok`` line, and
+exit 1 if any phase failed (``run_lm_phases`` prints each failure and
+runs the next phase):
+
+- dist4 collective — every group of the (W, 1) mesh (and the (2, 2)
+  one at W = 4) gives CUDA tensors to NCCL and CPU tensors to gloo;
+  ``compressed_psum_tree`` on dist collective's three leaves, replicated
+  and distinct per rank (numpy seed ``DIST_SEED``, with residuals), on
+  the NCCL ranks and on as many gloo ranks on the CPU: means and
+  residuals bit-equal rank for rank, within the reference's bounds, int8
+  the only payload; the 2048 x 2048 leaf's compressed all-reduce and a
+  plain NCCL f32 all_reduce of it timed (CUDA events);
+- dist4 compressed train — dist compressed train at data = W, each rank
+  on its own 8 x 128 rows of a global batch W times as large (the
+  ranks' first batches differ, by sha256): the replicas' parameters
+  bit-equal before the first step and after each;
+  ms per step, tokens/s over the W cards, the compressed all-reduce's
+  ms, int8 bytes per rank per step, a plain NCCL f32 all_reduce of one
+  step's gradients, peak memory per card;
+- dist4 compressed consistency — one compressed step of the 2-layer
+  olmo on the cards, each rank on its own rows; the same per-rank
+  gradients (handed over in ``build/dist_work``, deleted after) through
+  W gloo ranks: means and residuals bit-equal, parameters within
+  ``DIST_PARAM_TOL``;
+- dist4 moe ep — deepseek-moe-16b at 2 layers: the loss's forward and
+  backward with every MoE layer expert parallel on the meshes (1, W)
+  and, at W = 4, (2, 2), within the reference test's bounds
+  (``EP_BOUNDS``) of the dense path on the card run as EP routes (per
+  data shard), the whole-batch dense path beside it with the
+  assignments each drops beyond capacity; the ranks bit-equal; every
+  path run twice, the second timed and bit-equal to the first; forward
+  plus backward seconds beside the dense path's.
 """
 
 from __future__ import annotations
@@ -302,6 +343,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -456,6 +498,17 @@ F64_GRAD_TOL = 1e-8
 DIST_LEAF = 2048
 DIST_STEPS = 6
 DIST_PARAM_TOL = 1e-6
+# --dist ("dist4" phases, one NCCL rank per GPU): the numpy seed of each
+# rank's own leaves; where "dist4 compressed consistency" hands the cards'
+# start parameters, gradients and updated parameters to the gloo ranks
+# (deleted after); each phase's limit on its ranks, seconds; and the
+# reference test's bounds of EP against dense (tests/test_moe_ep.py:
+# outputs 1e-4, loads 1e-3, aux 0.05, gradients 2e-3; the loss, a
+# function of the outputs, at the outputs' bound).
+DIST_SEED = 25
+DIST_WORK = os.path.join(ROOT, "build", "dist_work")
+DIST_RANK_TIMEOUT = 300
+EP_BOUNDS = dict(y=1e-4, loss=1e-4, aux=0.05, load=1e-3, grad=2e-3)
 # "dryrun cells": launch.dryrun.run_cell on the single-pod mesh; "dryrun
 # anchor": argument + temp bytes of the lowered "lm train" step against
 # the card's peak over one step, within DRYRUN_MEM_TOL relative.
@@ -2528,10 +2581,26 @@ def check_lm_families(smi):
         torch.cuda.empty_cache()
 
 
-def run_lm_phases(smi, phases):
+class RankLaunches(list):
+    """What a phase run in spawned ranks returns: each rank's counts of
+    the CEP kernels' launches, read in that rank (``dist_rank``)."""
+
+
+def launch_counts():
+    from repro_torch.kernels import ops as kops
+
+    return {k: kops.LAUNCHES[k] + kops.GRAPH_LAUNCHES[k]
+            for k in kops.LAUNCHES}
+
+
+def run_lm_phases(smi, phases, failed=None):
     """Each (path, check) of ``phases`` with the CEP kernels' launch
     counters zeroed just before and read just after: the LM paths launch
-    none of them.  Returns the launches per path."""
+    none of them.  A check that runs in spawned ranks returns
+    ``RankLaunches``, which are summed with this process's counts.  With
+    a list ``failed``, a phase that raises is reported, its path
+    appended, and the next phase runs; else its error ends the run.
+    Returns the launches per path."""
     import torch
 
     from repro_torch.kernels import ops as kops
@@ -2543,14 +2612,23 @@ def run_lm_phases(smi, phases):
     for path, check in phases:
         t = phase(path)
         kops.reset_launch_counts()
-        check(smi)
-        launches[path] = {k: kops.LAUNCHES[k] + kops.GRAPH_LAUNCHES[k]
-                          for k in kops.LAUNCHES}
-        if any(launches[path].values()):
-            raise AssertionError(f"{path} launched a CEP kernel: "
-                                 f"{launches[path]}")
-        print(f"   CEP kernel launches on the {path} path: "
-              f"{launches[path]}")
+        try:
+            out = check(smi)
+            counts = [launch_counts()] + list(
+                out if isinstance(out, RankLaunches) else ())
+            launches[path] = {k: sum(c[k] for c in counts)
+                              for k in counts[0]}
+            if any(launches[path].values()):
+                raise AssertionError(f"{path} launched a CEP kernel: "
+                                     f"{launches[path]}")
+        except Exception:
+            if failed is None:
+                raise
+            traceback.print_exc()   # reported; the run fails at the end
+            failed.append(path)
+        else:
+            print(f"   CEP kernel launches on the {path} path: "
+                  f"{launches[path]}")
         done(path, t)
     return launches
 
@@ -2581,22 +2659,31 @@ def peak_line(device):
     return f"peak device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)"
 
 
+def sync_one(device):
+    """Waits for ``device``'s queued work (only that card's: a rank of
+    ``--dist`` touches no other)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class StepRecorder:
     """Stands in for ``launch.train.make_train_step``: each step runs
     between device syncs on the host clock, and its metrics are read back
     (``ce``, ``grad_norm``, ``lr``, ``expert_load``).  Keeps a slice of
     every parameter from before the first step, the last step's (model,
-    opt_state, batch) and the step function's config."""
+    opt_state, batch) and the step function's config.  ``check(model)``,
+    if given, runs before the first step and after each, off the clock."""
 
-    def __init__(self, device):
+    def __init__(self, device, check=None):
         from repro_torch.train import train_step
 
         self.device, self.make = device, train_step.make_train_step
+        self.check = check
         self.seconds, self.metrics, self.first, self.last = [], [], None, None
 
     def __call__(self, model, opt_cfg, **kw):
-        from benchmarks.torch_common import sync
-
         inner = self.make(model, opt_cfg, **kw)
         self.opt_cfg = opt_cfg
 
@@ -2604,10 +2691,12 @@ class StepRecorder:
             if self.first is None:
                 self.first = {n: p.detach().flatten()[:4096].clone()
                               for n, p in model.named_parameters()}
-            sync(self.device)
+                if self.check is not None:
+                    self.check(model)
+            sync_one(self.device)
             t = time.perf_counter()
             out = inner(model, opt_state, batch)
-            sync(self.device)
+            sync_one(self.device)
             self.seconds.append(time.perf_counter() - t)
             m = out[2]
             self.metrics.append(dict(
@@ -2615,6 +2704,8 @@ class StepRecorder:
                 **({"expert_load": m["expert_load"].cpu()}
                    if "expert_load" in m else {})))
             self.last = out[:2] + (batch,)
+            if self.check is not None:
+                self.check(out[0])
             return out
         return step
 
@@ -3283,28 +3374,70 @@ def check_dist_collective(smi, mesh):
           f"an f32 ring all-reduce ({smi})", flush=True)
 
 
-def check_dist_compressed_train(smi, mesh, device="cuda"):
+def replicas_differ(model, group):
+    """Rank 0's parameters broadcast over ``group`` and compared with each
+    rank's, bit for bit: the number of parameters that differ, summed
+    over the group's ranks (every rank gets the sum)."""
+    import torch
+    import torch.distributed as dist
+
+    bad = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            ref = p.detach().clone()
+            dist.broadcast(ref, src=0, group=group)
+            bad += int(not torch.equal(ref, p))
+    n = torch.tensor([bad], device=next(model.parameters()).device)
+    dist.all_reduce(n, group=group)
+    return int(n)
+
+
+def check_dist_compressed_train(smi, mesh):
     """``launch.train``'s OLMo-1B at full width and depth (``TRAIN_ARGV``'s
     batch) through ``make_train_step(compressed_grads=True, mesh=mesh)``
     with ``AdamWConfig(error_feedback=True)``, ``DIST_STEPS`` steps: every
     step finite, every parameter moved, and after the first step every
-    leaf's residual within 2 of its first scale.  Prints ms per step (the
-    first apart) beside "lm train"'s, the compressed all-reduce's device
-    ms (CUDA events), the int8 bytes per step beside an f32 ring's, and
-    peak memory."""
+    leaf's residual within 2 of its first (shared) scale.  Prints ms per
+    step (the first apart) beside "lm train"'s, the compressed
+    all-reduce's device ms (CUDA events), the int8 bytes per step beside
+    an f32 ring's, and peak memory.
+
+    On a mesh of ``W`` > 1 data ranks (``--dist``, one per GPU) each rank
+    trains on its own ``TRAIN_BATCH`` rows of a global batch ``W`` times as
+    large, the replicas' parameters must be bit-equal before the first
+    step and after each (``replicas_differ``), and a plain NCCL f32
+    ``all_reduce`` of one step's gradients is timed beside the compressed
+    one.  Rank 0 prints; every rank returns its numbers."""
+    import dataclasses
     import functools
+    import hashlib
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.distributed import collectives
     from repro_torch.launch import train
     from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import AdamWConfig
 
-    rec = StepRecorder(device)
-    events, wire, worst = [], [], {}
+    world = mesh.shape["data"]
+    group = mesh.get_group("data")
+    device = mesh.device
+    checks = []
+
+    def same_replicas(model):
+        bad = replicas_differ(model, group)
+        if bad:
+            raise AssertionError(f"dist compressed train: {bad} parameters "
+                                 f"differ between the replicas after "
+                                 f"{len(checks)} steps")
+        checks.append(len(checks))
+
+    rec = StepRecorder(device, check=same_replicas if world > 1 else None)
+    events, wire, worst, first_batch = [], [], {}, []
     real_by_leaf = ts.compressed_grads_by_leaf
     real_allreduce = collectives._compressed_allreduce
+    real_batch = train.make_batch
 
     def timed(*a, **kw):
         b = torch.cuda.Event(enable_timing=True)
@@ -3315,15 +3448,28 @@ def check_dist_compressed_train(smi, mesh, device="cuda"):
         events.append((b, e))
         return out
 
-    def gated(x, ef, group, n_shards):
-        out = real_allreduce(x, ef, group, n_shards)
+    def gated(x, ef, group_, n_shards):
+        out = real_allreduce(x, ef, group_, n_shards)
         if len(rec.seconds) == 0:  # the first step (reported apart)
-            scale1 = float((x.float().reshape(-1) + ef.reshape(-1)).abs()
-                           .max()) / 127.0 + 1e-12
+            m = (x.float().reshape(-1) + ef.reshape(-1)).abs().max() \
+                .reshape(1)
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group_)
+            scale1 = float(m) / 127.0 + 1e-12
             worst[tuple(x.shape)] = max(
                 worst.get(tuple(x.shape), 0.0),
                 float(out[1].abs().max()) / scale1)
         return out
+
+    def own_batch(cfg, dcfg, step):
+        b = real_batch(cfg, dataclasses.replace(dcfg, batch=world
+                                                * dcfg.batch), step)
+        r = mesh.coordinate["data"]
+        mine = {k: v[r * dcfg.batch:(r + 1) * dcfg.batch]
+                for k, v in b.items()}
+        if not first_batch:     # what this rank trains on first
+            first_batch.append(hashlib.sha256(b"".join(
+                mine[k].tobytes() for k in sorted(mine))).hexdigest())
+        return mine
 
     def make(model, opt_cfg, **kw):
         return rec(model, opt_cfg, compressed_grads=True, mesh=mesh)
@@ -3334,7 +3480,7 @@ def check_dist_compressed_train(smi, mesh, device="cuda"):
     reset_peak(device)
     t = time.perf_counter()
     with patched(train, make_train_step=make, AdamWConfig=functools.partial(
-            AdamWConfig, error_feedback=True)), \
+            AdamWConfig, error_feedback=True), make_batch=own_batch), \
             patched(ts, compressed_grads_by_leaf=timed), \
             patched(collectives, _compressed_allreduce=gated), \
             recording_wire(wire):
@@ -3354,23 +3500,50 @@ def check_dist_compressed_train(smi, mesh, device="cuda"):
     RESULTS["dist wire bytes per step"] = per_step
     ar_ms = [b.elapsed_time(e) for b, e in events]
     med = statistics.median(rec.seconds[1:])
-    base = RESULTS.get("lm train ms")
-    print(f"   olmo-1b ({n} params, f32, remat none, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, error feedback) on a (data 1, model 1) NCCL mesh: "
-          f"{DIST_STEPS} compressed steps in {secs:.3f} s, every step "
-          f"finite and every parameter moved; first step "
-          f"{rec.seconds[0] * 1e3:.3f} ms, median of the rest "
-          f"{med * 1e3:.3f} ms/step (min {min(rec.seconds[1:]) * 1e3:.3f}, "
-          f"max {max(rec.seconds[1:]) * 1e3:.3f})"
-          + (f" vs \"lm train\" {base:.3f} ms/step ({med * 1e3 / base:.3f}x)"
-             if base else "")
-          + f"; compressed all-reduce {statistics.median(ar_ms[1:]):.3f} ms "
-          f"median per step (CUDA events; first {ar_ms[0]:.3f}); "
-          f"payload {sorted(dtypes)} {per_step:.0f} bytes per step "
-          f"({per_step / n:.4f} B/param) vs {8 * n} for an f32 ring "
-          f"all-reduce (8 B/param); residual / first scale <= "
-          f"{max(worst.values()):.4f} over {len(worst)} leaves (gate 2); "
-          f"{memory} ({smi})", flush=True)
+    stats = dict(step_ms=med * 1e3, first_ms=rec.seconds[0] * 1e3,
+                 allreduce_ms=statistics.median(ar_ms[1:]),
+                 bytes_per_step=per_step, n_params=n,
+                 peak=(torch.cuda.max_memory_allocated(device)
+                       if torch.device(device).type == "cuda" else 0),
+                 worst=max(worst.values()), replica_checks=len(checks),
+                 first_batch=first_batch[0] if first_batch else None)
+    f32 = ""
+    if world > 1:
+        # The baseline the compression exists to beat: a plain f32 SUM
+        # all-reduce of each gradient of one step (the last batch).
+        _, _, grads = ts._grads(model, rec.last[2])
+        gs = [g for g in grads.values() if g is not None]
+        ms = cuda_ms(lambda: [dist.all_reduce(g, group=group) for g in gs],
+                     reps=3, inner=1)
+        stats["f32_allreduce_ms"] = ms
+        del grads, gs
+        tokens = world * TRAIN_BATCH * TRAIN_SEQ
+        f32 = (f"; {tokens / med:.1f} tokens/s over the {world} cards "
+               f"(global batch {world} x {TRAIN_BATCH} x {TRAIN_SEQ}); the "
+               f"replicas' parameters bit-equal before the first step and "
+               f"after each of the {DIST_STEPS}; a plain NCCL f32 "
+               f"all_reduce of one step's gradients (4 B/param handed in) "
+               f"{ms:.3f} ms median of 3 after 2 warm-up (CUDA events)")
+    if dist.get_rank() == 0:
+        base = RESULTS.get("lm train ms")
+        print(f"   olmo-1b ({n} params, f32, remat none, batch {TRAIN_BATCH}"
+              f" x {TRAIN_SEQ} per rank, error feedback) on a (data "
+              f"{world}, model 1) NCCL mesh: {DIST_STEPS} compressed steps "
+              f"in {secs:.3f} s, every step finite and every parameter "
+              f"moved; first step {rec.seconds[0] * 1e3:.3f} ms, median of "
+              f"the rest {med * 1e3:.3f} ms/step (min "
+              f"{min(rec.seconds[1:]) * 1e3:.3f}, max "
+              f"{max(rec.seconds[1:]) * 1e3:.3f})"
+              + (f" vs \"lm train\" {base:.3f} ms/step "
+                 f"({med * 1e3 / base:.3f}x)" if base else "")
+              + f"; compressed all-reduce {stats['allreduce_ms']:.3f} ms "
+              f"median per step (CUDA events; first {ar_ms[0]:.3f}); "
+              f"payload {sorted(dtypes)} {per_step:.0f} bytes per step per "
+              f"rank ({per_step / n:.4f} B/param) vs {8 * n} for an f32 "
+              f"ring all-reduce (8 B/param); residual / first scale <= "
+              f"{max(worst.values()):.4f} over {len(worst)} leaves (gate 2)"
+              f"{f32}; rank 0 {memory} ({smi})", flush=True)
+    return stats
 
 
 def check_dist_compressed_consistency(smi, mesh, device="cuda"):
@@ -3535,10 +3708,11 @@ def check_distribution(smi):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import (GPU_BACKEND, free_port,
+                                         make_host_mesh)
 
     dist.init_process_group(
-        "cpu:gloo,cuda:nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+        GPU_BACKEND, init_method=f"tcp://127.0.0.1:{free_port()}",
         world_size=1, rank=0)
     try:
         mesh = make_host_mesh(1, 1, device="cuda")
@@ -3553,6 +3727,660 @@ def check_distribution(smi):
                 ("dist moe ep", check_dist_moe_ep))))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# --dist: the distribution phases across the host's GPUs, one rank each
+# ---------------------------------------------------------------------------
+
+
+def digest(t):
+    """sha256 of a tensor's bytes: bit-equality across processes."""
+    import hashlib
+
+    import torch
+
+    a = t.detach().contiguous().reshape(-1).cpu()
+    return hashlib.sha256(a.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def group_backends(group, device):
+    """For the CPU and ``device``: the backend ``group`` gives that
+    device's tensors, and a SUM all-reduce of (rank + 1) over the group
+    against the sum of its ranks' (rank + 1)."""
+    import torch
+    import torch.distributed as dist
+
+    want = float(sum(r + 1 for r in dist.get_process_group_ranks(group)))
+    out = {}
+    for dev in dict.fromkeys((torch.device("cpu"), torch.device(device))):
+        t = torch.full((4,), float(dist.get_rank() + 1), device=dev)
+        dist.all_reduce(t, group=group)
+        out[dev.type] = (type(group._get_backend(dev)).__name__,
+                         float(t[0]), want)
+    return out
+
+
+def dist_rank_inputs(rank):
+    """Rank ``rank``'s own gradients and residuals in ``dist_inputs``'
+    shapes, drawn with numpy from (``DIST_SEED``, rank)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng([DIST_SEED, rank])
+    g, e = {}, {}
+    for k, v in dist_inputs().items():
+        g[k] = torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
+        e[k] = torch.from_numpy((0.01 * rng.normal(size=v.shape)).astype(
+            np.float32))
+    return g, e
+
+
+def dist_collective_rank(rank, world, device, inputs=None):
+    """"dist4 collective" on one rank (``device``: its card over NCCL, or
+    the CPU over gloo): the backends of every group of the (W, 1) mesh
+    (and of (2, 2) at W = 4); ``compressed_psum_tree`` on the replicated
+    leaves on every rank and on the rank's own leaves with its residuals
+    (distinct); the payloads handed to the all_to_all and the all-gather;
+    on the card, the 2048 x 2048 leaf's compressed all-reduce and a plain
+    f32 all_reduce of it timed with CUDA events.  ``inputs``: (replicated
+    leaves, own leaves, own residuals) as numpy, the own ones stacked by
+    rank; by default ``dist_inputs`` and ``dist_rank_inputs(rank)``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import compressed_psum_tree
+    from repro_torch.launch.mesh import make_host_mesh
+
+    meshes = {(world, 1): make_host_mesh(world, 1, device=device)}
+    if world == 4:
+        meshes[(2, 2)] = make_host_mesh(2, 2, device=device)
+    mesh = meshes[(world, 1)]
+    dev = mesh.device
+    res = {"device": str(dev), "groups": {}}
+    for shape, m in meshes.items():
+        for name, g in (("data", m.get_group("data")),
+                        ("model", m.get_group("model")),
+                        ("all", m.group(tuple(m.shape)))):
+            res["groups"][f"{shape} {name}"] = group_backends(g, dev)
+    if inputs is None:
+        rep = dist_inputs()
+        own, own_ef = dist_rank_inputs(rank)
+    else:
+        rep = {k: torch.from_numpy(v) for k, v in inputs[0].items()}
+        own, own_ef = ({k: torch.from_numpy(v[rank]) for k, v in d.items()}
+                       for d in inputs[1:])
+    rep = {k: v.to(dev) for k, v in rep.items()}
+    own = {k: v.to(dev) for k, v in own.items()}
+    own_ef = {k: v.to(dev) for k, v in own_ef.items()}
+    wire = []
+    with recording_wire(wire):
+        runs = {"replicated": compressed_psum_tree(rep, (), mesh),
+                "distinct": compressed_psum_tree(own, own_ef, mesh)}
+    res["wire"] = [(n, str(dt), b) for n, dt, b in wire]
+    for what, (out, ef) in runs.items():
+        for k in out:
+            res[f"{what} mean {k}"] = out[k].cpu().numpy()
+            res[f"{what} residual {k}"] = ef[k].cpu().numpy()
+    if device == "cuda" and "big" in rep:
+        big = rep["big"]
+        res["compressed ms"] = cuda_ms(
+            lambda: compressed_psum_tree({"big": big}, (), mesh), reps=5,
+            inner=1)
+        res["f32 ms"] = cuda_ms(lambda: dist.all_reduce(
+            big.clone(), group=mesh.get_group("data")), reps=5, inner=1)
+    return res
+
+
+def dist_consistency_rank(rank, world, work, device):
+    """"dist4 compressed consistency" on one rank.  On the card (NCCL):
+    olmo-1b at full width, ``TRAIN_LAYERS`` layers, drawn on the card from
+    seed 0 (the replicas must be bit-equal), one compressed step with
+    error feedback on the rank's own ``TRAIN_CHECK_B`` rows of a global
+    batch; rank 0 writes the start and updated parameters to ``work``,
+    every rank its gradients.  On the CPU (gloo): the same step from the
+    start parameters and that rank's card gradients.  Returns the digests
+    of the means and residuals, and on the CPU the parameters' gap to the
+    card's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    mesh = make_host_mesh(world, 1, device=device)
+    dev = mesh.device
+    cfg = get_config("olmo-1b").with_(n_layers=TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=20,
+                          error_feedback=True)
+    res = {}
+    if device == "cuda":
+        model = Model(cfg, dev, remat="none").init(
+            torch.Generator(device=dev).manual_seed(0))
+        res["replicas differ before"] = replicas_differ(
+            model, mesh.get_group("data"))
+        if rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in
+                        model.named_parameters()},
+                       os.path.join(work, "start.pt"))
+        b = make_batch(cfg, DataConfig(batch=world * TRAIN_CHECK_B,
+                                       seq=TRAIN_CHECK_S), 0)
+        batch = ts.batch_to({k: v[rank * TRAIN_CHECK_B:
+                                  (rank + 1) * TRAIN_CHECK_B]
+                             for k, v in b.items()}, dev)
+        real, kept = ts._grads, {}
+
+        def grads_of(model_, b_):
+            out = real(model_, b_)
+            kept.update(out[2])
+            return out
+    else:
+        model = Model(cfg, "cpu", remat="none")
+        model.load_state_dict(torch.load(os.path.join(work, "start.pt")))
+        batch = {}
+        card = torch.load(os.path.join(work, f"grads{rank}.pt"))
+
+        def grads_of(model_, b_):
+            return torch.zeros(()), {}, card
+    real_by_leaf, means = ts.compressed_grads_by_leaf, {}
+
+    def keep_means(*a, **kw):
+        out = real_by_leaf(*a, **kw)
+        means.update(out[0])
+        return out
+
+    opt = init_state(opt_cfg, dict(model.named_parameters()))
+    with patched(ts, _grads=grads_of, compressed_grads_by_leaf=keep_means):
+        t = time.perf_counter()
+        model, opt, m = ts.make_train_step(
+            model, opt_cfg, compressed_grads=True, mesh=mesh)(model, opt,
+                                                              batch)
+        sync_one(dev)
+        res["seconds"] = time.perf_counter() - t
+    res["means"] = {n: digest(v) for n, v in means.items()}
+    res["residuals"] = {n: digest(v) for n, v in opt.ef.items()}
+    if device == "cuda":
+        res["replicas differ after"] = replicas_differ(
+            model, mesh.get_group("data"))
+        res["ce"], res["grad_norm"] = float(m["ce"]), float(m["grad_norm"])
+        torch.save({n: None if g is None else g.cpu()
+                    for n, g in kept.items()},
+                   os.path.join(work, f"grads{rank}.pt"))
+        if rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in
+                        model.named_parameters()},
+                       os.path.join(work, "after.pt"))
+    else:
+        after = torch.load(os.path.join(work, "after.pt"))
+        res["grad_norm"] = float(m["grad_norm"])
+        res["param gap"] = max(float((p.detach() - after[n]).abs().max())
+                               for n, p in model.named_parameters())
+        res["params equal"] = sum(torch.equal(p.detach(), after[n])
+                                  for n, p in model.named_parameters())
+        res["params"] = len(after)
+    return res
+
+
+def dense_per_shard(x, p, cfg, n):
+    """The dense MoE path on each of ``n`` data shards of ``x`` apart (the
+    capacity each expert-parallel data shard routes with): outputs
+    concatenated, aux averaged, loads summed, as the EP path returns
+    them."""
+    import torch
+
+    from repro_torch.models import moe
+
+    outs = [moe._moe_ffn_dense(xs, p, cfg) for xs in x.chunk(n)]
+    return (torch.cat([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]).mean(),
+            sum(o[2] for o in outs))
+
+
+def dist_moe_rank(rank, world, shapes):
+    """"dist4 moe ep" on one rank: deepseek-moe-16b at full width,
+    ``TRAIN_LAYERS`` layers, drawn on the card from seed 0, the loss of
+    ``make_batch``'s step 0 (``TRAIN_BATCH`` x ``TRAIN_SEQ``, the global
+    batch on every rank) and its gradients: on the dense path, then with
+    every MoE layer expert parallel on each mesh of ``shapes``.  Each mesh
+    against the dense path on this card run as the EP path routes (per
+    data shard: ``dense_per_shard``; with one data shard the plain dense
+    path) at the reference test's bounds -- MoE outputs, loss, aux,
+    loads, gradients --, and against the whole-batch dense path, with the
+    assignments each drops beyond its capacity.  Returns the gaps, the
+    seconds, and digests of every result (the ranks must agree)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import _grads, batch_to
+
+    meshes = {shape: make_host_mesh(*shape, device="cuda")
+              for shape in shapes}
+    dev = meshes[shapes[0]].device
+    cfg = get_config("deepseek-moe-16b").with_(n_layers=TRAIN_LAYERS)
+    model = Model(cfg, dev, remat="none").init(
+        torch.Generator(device=dev).manual_seed(0))
+    batch = batch_to(make_batch(cfg, DataConfig(batch=TRAIN_BATCH,
+                                                seq=TRAIN_SEQ), 0), dev)
+
+    def run(fn, n_shards=1):
+        xs_in = []
+
+        def recorded(x, p, cfg_):
+            out = fn(x, p, cfg_)
+            xs_in.append((x.detach(), p["router"].detach(),
+                          out[0].detach().clone()))
+            return out
+
+        with patched(model_mod, moe_ffn=recorded):
+            sync_one(dev)
+            t = time.perf_counter()
+            loss, metrics, grads = _grads(model, batch)
+            sync_one(dev)
+            secs = time.perf_counter() - t
+        # The assignments routed beyond an expert's capacity, per data
+        # shard (counted off the clock).
+        drops = 0
+        for x, router, _ in xs_in:
+            for xs in x.chunk(n_shards):
+                _, _, top_e = moe.route(xs.reshape(-1, cfg.d_model), router,
+                                        cfg.top_k, None)
+                n = torch.bincount(top_e.reshape(-1),
+                                   minlength=cfg.n_experts)
+                c = moe.capacity(cfg, xs.shape[0] * xs.shape[1])
+                drops += int((n - c).clamp(min=0).sum())
+        return dict(loss=loss, aux=metrics["aux_loss"],
+                    load=metrics["expert_load"], ys=[y for *_, y in xs_in],
+                    grads=grads, drops=drops, seconds=secs)
+
+    def digests(r):
+        return [digest(r[k]) for k in ("loss", "aux", "load")] + [
+            digest(y) for y in r["ys"]] + [
+            None if g is None else digest(g) for g in r["grads"].values()]
+
+    def gaps(a, b):
+        """Largest |a - b| of the MoE outputs, loss, aux, loads and
+        gradients, and the gradients' largest gap over the leaf's
+        largest."""
+        g = [(float((a["grads"][n] - w).abs().max()),
+              float((a["grads"][n] - w).abs().max())
+              / max(float(w.abs().max()), 1e-30))
+             for n, w in b["grads"].items() if w is not None]
+        return dict(
+            y=max(float((u - v).abs().max()) for u, v in zip(a["ys"],
+                                                             b["ys"])),
+            loss=abs(float(a["loss"]) - float(b["loss"])),
+            aux=abs(float(a["aux"]) - float(b["aux"])),
+            load=float((a["load"] - b["load"]).abs().max()),
+            grad=max(x for x, _ in g), grad_rel=max(r for _, r in g))
+
+    def twice(fn, n_shards=1):
+        """``run`` twice: the first call sets up what a path uses first
+        (its groups' NCCL communicators, cuBLAS kernels); the second is
+        timed and must repeat the first bit for bit."""
+        first = run(fn, n_shards)
+        want, first_s = digests(first), first["seconds"]
+        del first
+        again = run(fn, n_shards)
+        if digests(again) != want:
+            raise AssertionError("dist4 moe ep: a second run differs")
+        again["first seconds"] = first_s
+        return again
+
+    dense = twice(model_mod.moe_ffn)
+    res = {"dense": digests(dense), "dense seconds": dense["seconds"],
+           "dense first seconds": dense["first seconds"],
+           "dense drops": dense["drops"], "experts": cfg.n_experts,
+           "top_k": cfg.top_k,
+           "params": sum(p.numel() for p in model.parameters())}
+    for shape, mesh in meshes.items():
+        n_dp = shape[0]
+
+        def ep(x, p, cfg_, mesh=mesh):
+            return moe._moe_ffn_ep_global(x, p, cfg_, mesh)
+
+        got = twice(ep, n_dp)
+        ref = dense if n_dp == 1 else run(
+            lambda x, p, c, n=n_dp: dense_per_shard(x, p, c, n), n_dp)
+        res[shape] = dict(digests=digests(got), seconds=got["seconds"],
+                          first_seconds=got["first seconds"],
+                          drops=got["drops"], gaps=gaps(got, ref),
+                          whole=gaps(got, dense),
+                          ep_calls=len(got["ys"]))
+        del got, ref
+    return res
+
+
+def dist_train_rank(rank, world):
+    """"dist4 compressed train" on one rank: ``check_dist_compressed_train``
+    on the (W, 1) mesh of the cards."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={rank}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+    return check_dist_compressed_train(
+        smi, make_host_mesh(world, 1, device="cuda"))
+
+
+def dist_rank(rank, world, check, *args):
+    """One rank's part of a ``--dist`` phase, ``check(rank, world,
+    *args)``, with the CEP kernels' launch counters zeroed just before and
+    read just after (``launches``); only rank 0 prints."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stdout if rank == 0
+                                    else open(os.devnull, "w")):
+        out = check(rank, world, *args)
+    out["launches"] = launch_counts()
+    return out
+
+
+def rank_launches(ranks):
+    return RankLaunches(r["launches"] for r in ranks)
+
+
+def same_bits(got, want, what):
+    import numpy as np
+
+    if got.shape != want.shape or not np.array_equal(
+            got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"{what}: {int((got != want).sum())} of "
+                             f"{want.size} elements differ")
+
+
+def dist_collective_pair(world, path, inputs=None):
+    """``dist_collective_rank`` on ``world`` NCCL ranks (one per GPU) and
+    on as many gloo ranks on the CPU, on the same ``inputs``: every group
+    of the meshes gives CUDA tensors to NCCL and CPU tensors to gloo, and
+    sums right; only int8 handed to the all_to_all and the all-gather;
+    the means and residuals of every rank bit-equal to the gloo rank's,
+    replicated and distinct, the means equal on every rank.  Returns the
+    ranks' results (cards, then CPUs)."""
+    from repro_torch.launch.mesh import GPU_BACKEND, run_ranks
+
+    cards = run_ranks(dist_rank, world, dist_collective_rank, "cuda",
+                      inputs, backend=GPU_BACKEND, timeout=DIST_RANK_TIMEOUT)
+    cpus = run_ranks(dist_rank, world, dist_collective_rank, "cpu", inputs,
+                     backend="gloo", timeout=DIST_RANK_TIMEOUT)
+    for r, res in enumerate(cards + cpus):
+        for name, per in res["groups"].items():
+            for dev, (backend, got, want) in per.items():
+                if got != want or ("NCCL" if dev == "cuda" else "Gloo") \
+                        not in backend:
+                    raise AssertionError(f"{path}: group {name} of "
+                                         f"{res['device']}, {dev} tensors: "
+                                         f"{backend}, sum {got} vs {want}")
+        dtypes = {dt for _, dt, _ in res["wire"]}
+        if dtypes != {"torch.int8"}:
+            raise AssertionError(f"{path}: payload {dtypes} on "
+                                 f"{res['device']}")
+    keys = [k for k in cpus[0] if " mean " in k or " residual " in k]
+    for r, (card, cpu) in enumerate(zip(cards, cpus)):
+        for k in keys:
+            same_bits(card[k], cpu[k], f"{path} rank {r} {k} NCCL vs gloo")
+            if " mean " in k:
+                same_bits(card[k], cards[0][k], f"{path} {k} rank {r} vs 0")
+    return cards, cpus
+
+
+def check_dist4_collective(smi, world, path):
+    """"dist4 collective": ``dist_collective_pair`` on ``dist_inputs``
+    and ``dist_rank_inputs`` (NCCL ranks bit-equal to gloo ranks, int8
+    only on the wire), then the reference's bounds: mean within 3
+    quantization steps of the exact mean of gradient + residual,
+    residual within 2."""
+    import numpy as np
+
+    cards, cpus = dist_collective_pair(world, path)
+    keys = [k for k in cpus[0] if " mean " in k or " residual " in k]
+    rep = {k: v.numpy() for k, v in dist_inputs().items()}
+    own = [dist_rank_inputs(r) for r in range(world)]
+    worst = 0.0
+    for k, x in rep.items():
+        totals = [(x, None)] + [(g[k].numpy() + e[k].numpy(), r)
+                                for r, (g, e) in enumerate(own)]
+        for what, cases in (("replicated", totals[:1]),
+                            ("distinct", totals[1:])):
+            scale = max(float(np.abs(t).max()) for t, _ in cases) / 127.0
+            exact = np.mean([t for t, _ in cases], axis=0)
+            for r, card in enumerate(cards):
+                err = float(np.abs(card[f"{what} mean {k}"] - exact).max())
+                res_ = float(np.abs(card[f"{what} residual {k}"]).max())
+                worst = max(worst, err / scale)
+                if err > 3 * scale or res_ > 2 * scale:
+                    raise AssertionError(f"{path} {what} {k} rank {r}: "
+                                         f"error {err}, residual {res_}, "
+                                         f"scale {scale}")
+    n = rep["big"].size
+    wire = sum(b for _, _, b in cards[0]["wire"])
+    print(f"   {len(rep)} leaves ({sum(x.size for x in rep.values())} "
+          f"elements) replicated and distinct per rank (numpy seed "
+          f"{DIST_SEED}, with residuals): means and residuals of every "
+          f"NCCL rank bit-equal to its gloo rank ({len(keys)} arrays each), "
+          f"means equal on every rank; mean error <= {worst:.4f} "
+          f"quantization steps (gate 3), residuals within 2; payload "
+          f"['torch.int8'] only, {wire} bytes per rank over both runs; the "
+          f"{DIST_LEAF} x {DIST_LEAF} leaf: compressed all-reduce "
+          f"{cards[0]['compressed ms']:.3f} ms, plain f32 all_reduce "
+          f"{cards[0]['f32 ms']:.3f} ms (rank 0, CUDA events, median of 5; "
+          f"slowest rank {max(c['compressed ms'] for c in cards):.3f} / "
+          f"{max(c['f32 ms'] for c in cards):.3f} ms); int8 payload "
+          f"{n + n // world} bytes per rank vs {4 * n} handed to the f32 "
+          f"all_reduce", flush=True)
+    return rank_launches(cards)
+
+
+def check_dist4_train(smi, world, path):
+    """"dist4 compressed train": ``check_dist_compressed_train`` on
+    ``world`` NCCL ranks, data = ``world``: each rank's first batch
+    differs from every other's (sha256 of its rows), and the replicas
+    were compared after every step; rank 0 prints its line, then each
+    card's numbers."""
+    from repro_torch.launch.mesh import GPU_BACKEND, run_ranks
+
+    ranks = run_ranks(dist_rank, world, dist_train_rank,
+                      backend=GPU_BACKEND, timeout=DIST_RANK_TIMEOUT)
+    firsts = {st["first_batch"] for st in ranks}
+    if None in firsts or len(firsts) != world:
+        raise AssertionError(f"{path}: the ranks' first batches are not "
+                             f"{world} different ones")
+    for r, st in enumerate(ranks):
+        if st["replica_checks"] != DIST_STEPS + 1:
+            raise AssertionError(f"{path} rank {r}: {st['replica_checks']} "
+                                 "replica checks")
+        print(f"   rank {r} (cuda:{r}): {st['step_ms']:.3f} ms/step, "
+              f"compressed all-reduce {st['allreduce_ms']:.3f} ms, plain "
+              f"f32 all_reduce {st['f32_allreduce_ms']:.3f} ms, int8 "
+              f"payload {st['bytes_per_step']:.0f} bytes/step, peak device "
+              f"memory {st['peak'] / 2 ** 30:.3f} GiB ({st['peak']} bytes)",
+              flush=True)
+    return rank_launches(ranks)
+
+
+def check_dist4_consistency(smi, world, path):
+    """"dist4 compressed consistency": ``dist_consistency_rank`` on
+    ``world`` NCCL ranks, then on as many gloo ranks from the cards'
+    start parameters and gradients: the replicas bit-equal before and
+    after the step, every rank's means and residuals bit-equal to its
+    gloo rank's (and the means across ranks), the gloo ranks' parameters
+    within ``DIST_PARAM_TOL`` of the cards'.  The files under
+    ``DIST_WORK`` are deleted after."""
+    from repro_torch.launch.mesh import GPU_BACKEND, run_ranks
+
+    os.makedirs(DIST_WORK, exist_ok=True)
+    try:
+        cards = run_ranks(dist_rank, world, dist_consistency_rank,
+                          DIST_WORK, "cuda", backend=GPU_BACKEND,
+                          timeout=DIST_RANK_TIMEOUT)
+        cpus = run_ranks(dist_rank, world, dist_consistency_rank, DIST_WORK,
+                         "cpu", backend="gloo", timeout=DIST_RANK_TIMEOUT)
+    finally:
+        shutil.rmtree(DIST_WORK, ignore_errors=True)
+    for r, (card, cpu) in enumerate(zip(cards, cpus)):
+        if card["replicas differ before"] or card["replicas differ after"]:
+            raise AssertionError(f"{path}: replicas differ")
+        for what in ("means", "residuals"):
+            diff = [n for n in card[what] if card[what][n] != cpu[what][n]]
+            if diff:
+                raise AssertionError(f"{path} rank {r}: {what} NCCL vs gloo "
+                                     f"differ in {diff[:4]} ({len(diff)})")
+        if card["means"] != cards[0]["means"]:
+            raise AssertionError(f"{path}: means of rank {r} vs 0 differ")
+        if cpu["param gap"] > DIST_PARAM_TOL:
+            raise AssertionError(f"{path} rank {r}: parameters gloo vs "
+                                 f"NCCL {cpu['param gap']}")
+    c0 = cards[0]
+    print(f"   olmo-1b {TRAIN_LAYERS} of 16 layers, batch {TRAIN_CHECK_B} x "
+          f"{TRAIN_CHECK_S} per rank ({world} ranks), one compressed step "
+          f"with error feedback: ce (rank 0) {c0['ce']:.6f}, grad_norm "
+          f"{c0['grad_norm']:.6e} on the cards vs {cpus[0]['grad_norm']:.6e}"
+          f" on gloo; replicas bit-equal before and after; means and "
+          f"residuals of every rank bit-equal NCCL vs gloo "
+          f"({len(c0['means'])} + {len(c0['residuals'])} tensors each), "
+          f"means equal on every rank; parameters gloo vs the cards: "
+          f"bit-equal {min(c['params equal'] for c in cpus)} of "
+          f"{cpus[0]['params']}, max |diff| "
+          f"{max(c['param gap'] for c in cpus):.3e} (gate {DIST_PARAM_TOL})"
+          f"; the step {max(c['seconds'] for c in cards):.3f} s on the "
+          f"cards, {max(c['seconds'] for c in cpus):.3f} s on gloo (slowest "
+          f"rank)", flush=True)
+    return rank_launches(cards)
+
+
+def check_dist4_moe(smi, world, path):
+    """"dist4 moe ep": ``dist_moe_rank`` on ``world`` NCCL ranks, meshes
+    (1, W) and, at W = 4, (2, 2): every MoE layer on the EP path; the EP
+    run within ``EP_BOUNDS`` of the dense path run as it routes (the
+    gate), the whole-batch dense path beside it (gated where neither
+    drops an assignment beyond capacity, as the reference test's note
+    requires); every rank's results bit-equal to rank 0's, the dense
+    path's too."""
+    from repro_torch.launch.mesh import GPU_BACKEND, run_ranks
+
+    shapes = [(1, world)] + ([(2, 2)] if world == 4 else [])
+    ranks = run_ranks(dist_rank, world, dist_moe_rank, shapes,
+                      backend=GPU_BACKEND, timeout=DIST_RANK_TIMEOUT)
+    r0 = ranks[0]
+    if any(r["dense"] != r0["dense"] for r in ranks):
+        raise AssertionError(f"{path}: the dense path differs across cards")
+    print(f"   deepseek-moe-16b {TRAIN_LAYERS} of 28 layers ({r0['params']} "
+          f"params, {r0['experts']} experts top-{r0['top_k']}), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: the dense path on each card "
+          f"{r0['dense seconds']:.3f} s forward + backward (rank 0; first "
+          f"run {r0['dense first seconds']:.3f} s, bit-equal to it), "
+          f"bit-equal on every card, {r0['dense drops']} assignments "
+          f"beyond capacity", flush=True)
+    for shape in shapes:
+        got = [r[shape] for r in ranks]
+        if any(g["digests"] != got[0]["digests"] for g in got):
+            raise AssertionError(f"{path} {shape}: ranks differ")
+        g0 = got[0]
+        if g0["ep_calls"] != TRAIN_LAYERS:
+            raise AssertionError(f"{path} {shape}: {g0['ep_calls']} EP calls")
+        n_dp = shape[0]
+        gated = [("the dense path as it routes" if n_dp > 1
+                  else "the dense path", "gaps")]
+        whole_gated = n_dp == 1 or (g0["drops"] == 0 and
+                                    r0["dense drops"] == 0)
+        if n_dp > 1 and whole_gated:
+            gated.append(("the whole-batch dense path", "whole"))
+        for what, key in gated:
+            for r, g in enumerate(got):
+                over = {k: v for k, v in g[key].items()
+                        if k in EP_BOUNDS and v >= EP_BOUNDS[k]}
+                if over:
+                    raise AssertionError(f"{path} {shape} rank {r} vs {what}"
+                                         f": {over} (bounds {EP_BOUNDS})")
+        fmt = ", ".join(f"{k} {v:.3e}" for k, v in g0["gaps"].items())
+        line = (f"   mesh {shape} (n_ep {shape[1]}, "
+                f"{r0['experts'] // shape[1]} experts per card): EP forward "
+                f"+ backward {g0['seconds']:.3f} s (rank 0; first run, the "
+                f"groups' NCCL set-up included, {g0['first_seconds']:.3f} "
+                f"s, bit-equal to it) vs dense {r0['dense seconds']:.3f} s; "
+                f"all {world} ranks bit-equal; vs {gated[0][0]}: {fmt} "
+                f"(bounds {EP_BOUNDS})")
+        if n_dp > 1:
+            whole = ", ".join(f"{k} {v:.3e}" for k, v in g0["whole"].items())
+            line += (f"; vs the whole-batch dense path "
+                     f"({'gated' if whole_gated else 'ungated'}: "
+                     f"{g0['drops']} assignments beyond the shards' "
+                     f"capacity, {r0['dense drops']} beyond the whole "
+                     f"batch's): {whole}")
+        print(line, flush=True)
+    return rank_launches(ranks)
+
+
+def dist_topology():
+    """How the GPUs are linked: ``nvidia-smi topo -m`` and its GPU0 - GPU1
+    entry; where the matrix cannot be read (a container), GPU0's NVLink
+    links from ``nvidia-smi nvlink --status -i 0`` instead; and whether
+    torch sees peer access from GPU0 to GPU1."""
+    import torch
+
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    link = next((line.split()[2] for line in topo.stdout.splitlines()
+                 if line.split()[:1] == ["GPU0"] and len(line.split()) > 2),
+                None)
+    if link is None:
+        nvlink = subprocess.run(["nvidia-smi", "nvlink", "--status", "-i",
+                                 "0"], capture_output=True, text=True)
+        links = [line.split(":", 1)[1].strip()
+                 for line in nvlink.stdout.splitlines()
+                 if line.strip().startswith("Link ")]
+        link = (f"topo -m unreadable ({(topo.stdout + topo.stderr).strip()})"
+                f"; GPU0 NVLink: {len(links)} links "
+                f"{sorted(set(links))}")
+    peer = torch.cuda.can_device_access_peer(0, 1)
+    return topo.stdout.rstrip(), f"{link}; peer access GPU0 -> GPU1: {peer}"
+
+
+def dist_only(smi):
+    """``--dist``: the four "dist4" phases across the host's GPUs, one
+    NCCL rank per GPU (4 ranks on a host of 4 or more, 2 on one of 2 or
+    3), each phase its own spawn of ranks (``launch.mesh.run_ranks``);
+    prints the launches per path.  A failed phase is reported and the
+    next one runs (``run_lm_phases`` with ``failed``); the run then
+    returns 1.  Needs 2 GPUs."""
+    import functools
+
+    import torch
+
+    count = torch.cuda.device_count()
+    world = 4 if count >= 4 else 2
+    topo, link = dist_topology()
+    if topo:
+        print(topo)
+    print(f"   {count} GPUs; GPU0 - GPU1 link: {link}; {world} NCCL ranks, "
+          f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} ({smi})",
+          flush=True)
+    if world < 4:
+        print(f"   this host has {count} GPUs: the phases run on 2 ranks "
+              f"(data=2, an EP mesh of (1, 2)); the 4-rank run was not run "
+              f"here", flush=True)
+    failed = []
+    launches = run_lm_phases(smi, tuple(
+        (path, functools.partial(check, world=world, path=path))
+        for path, check in (
+            ("dist4 collective", check_dist4_collective),
+            ("dist4 compressed train", check_dist4_train),
+            ("dist4 compressed consistency", check_dist4_consistency),
+            ("dist4 moe ep", check_dist4_moe))), failed=failed)
+    print(json.dumps({"launches_by_path": launches}))
+    if failed:
+        print(f"chip_smoke --dist: failed phases {failed}", file=sys.stderr)
+        return 1
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3731,14 +4559,6 @@ def check_examples(smi):
     shutil.rmtree(os.path.join(ROOT, "build", "examples"),
                   ignore_errors=True)
     return launches
-
-
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def open_bench_session(path, superchunk, backend=None):
@@ -3929,6 +4749,10 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
     done("device", t)
+    if "--dist" in sys.argv and count < 2:
+        print(f"chip_smoke --dist: needs ≥ 2 GPUs; this host has {count} "
+              f"(no phase falls back to one rank)", file=sys.stderr)
+        return 1
 
     t = phase("build")
     window_join.build()
@@ -3944,6 +4768,8 @@ def main() -> int:
         bench(int(sys.argv[sys.argv.index("--bench") + 1]))
         done("bench", t)
         return 0
+    if "--dist" in sys.argv:
+        return dist_only(smi)
     if "--mesh" in sys.argv:
         t = phase("mesh")
         mesh_only()

@@ -25,6 +25,12 @@ backward is held to JAX's gradients within that tolerance, and the
 step itself -- compression, error feedback carried into the next step,
 AdamW -- is held to JAX's from JAX's gradients, within
 ``test_torch_train_loop``'s tolerances.
+
+``run_ranks`` itself: a rank that raises or hangs fails the call within
+its limit, and NCCL's one rank per GPU is enforced (a world larger than
+the GPU count is refused, with a stubbed count).  The ``gpu`` test
+``test_cuda_multi_gpu_compressed_psum_equals_gloo`` runs the collective
+on one NCCL rank per GPU against as many gloo ranks.
 """
 
 import numpy as np
@@ -305,7 +311,8 @@ def runs(tmp_path_factory):
     code = (f"IN = {in_path!r}\nROUNDS = {ROUNDS}\nSTEPS = {STEPS}\n"
             f"OPT = {OPT!r}\n" + JAX_CODE)
     want = finish_jax(start_jax(code, WORLD, out), out)
-    return inp, run_ranks(rank_main, WORLD, in_path, out), want
+    return inp, run_ranks(rank_main, WORLD, in_path, out,
+                          backend="gloo"), want
 
 
 def bits(got, want, what):
@@ -465,3 +472,111 @@ def test_cuda_compressed_psum_equals_cpu():
     for want, got in zip(cpu, card):
         for k in g:
             bits(got[k].cpu().numpy(), want[k].numpy(), k)
+
+
+def _fail_on_rank_one(rank, world, how):
+    """Rank 1 raises or hangs; rank 0 returns and waits for it."""
+    import time
+
+    if rank == 1:
+        if how == "raises":
+            raise ValueError("rank 1 fails on purpose")
+        time.sleep(3600)
+    return rank
+
+
+@pytest.mark.parametrize("how", ("raises", "hangs"))
+def test_run_ranks_fails_within_its_limit(how):
+    """A rank that raises fails ``run_ranks`` with its error, and a rank
+    that hangs fails it with ``TimeoutError`` once the limit has passed;
+    either way within the limit (plus the stop), with no rank left
+    running."""
+    import multiprocessing
+    import time
+
+    limit = 120.0 if how == "raises" else 10.0
+    t = time.monotonic()
+    with pytest.raises(Exception) as info:
+        run_ranks(_fail_on_rank_one, 2, how, backend="gloo",
+                  timeout=limit)
+    assert time.monotonic() - t < limit + 15
+    if how == "raises":
+        assert "rank 1 fails on purpose" in str(info.value)
+    else:
+        assert info.type is TimeoutError
+    assert not multiprocessing.active_children()
+
+
+@pytest.mark.parametrize("entry", ("make_host_mesh", "run_ranks",
+                                   "hosts_of_two"))
+def test_cuda_world_larger_than_the_gpus_is_refused(monkeypatch, entry):
+    """NCCL takes one rank per GPU: a mesh on ``cuda`` in a world of 4
+    ranks on one host of 2 GPUs raises (never two ranks on one card), and
+    so does ``run_ranks`` asked for 4 NCCL ranks (a stubbed GPU count and
+    group, so it runs without a GPU).  Across hosts the rule is per host:
+    with ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` set as torchrun sets them,
+    rank 5 of 8 on hosts of 2 ranks takes ``cuda:1`` of its 2 GPUs, and 4
+    ranks on such a host are refused."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    refused = "4 ranks on a host with 2 GPUs"
+    if entry == "run_ranks":
+        with pytest.raises(RuntimeError, match=refused):
+            mesh_mod.run_ranks(_fail_on_rank_one, 4, "raises",
+                               backend=mesh_mod.GPU_BACKEND)
+        return
+    monkeypatch.setattr(mesh_mod, "resolve_device", torch.device)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 4)
+    monkeypatch.setattr(dist, "get_rank", lambda *a: 3)
+    if entry == "hosts_of_two":
+        monkeypatch.setattr(dist, "get_world_size", lambda *a: 8)
+        monkeypatch.setattr(dist, "get_rank", lambda *a: 5)
+        monkeypatch.setenv("LOCAL_RANK", "1")
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+        assert mesh_mod.local_ranks() == (1, 2)
+        assert mesh_mod.local_gpu(*mesh_mod.local_ranks()) == \
+            torch.device("cuda", 1)
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    with pytest.raises(RuntimeError, match=refused):
+        mesh_mod.make_host_mesh(4, 1, device="cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_multi_gpu_compressed_psum_equals_gloo():
+    """One NCCL rank per GPU (4, or 2 on a 2- or 3-GPU host; skips with
+    fewer) against as many gloo ranks on the CPU, on this module's inputs
+    (the replicated leaves, each rank's own row of the distinct ones with
+    its residual, and a 2048 x 2048 leaf), through ``chip_smoke.py``'s
+    "dist4 collective" rank body (``dist_collective_pair``): every group
+    on NCCL for CUDA tensors and gloo for CPU ones, int8 the only
+    payload, means and residuals bit-equal rank for rank; the replicated
+    means within the reference's 3 quantization steps of the input."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < 2:
+        pytest.skip("needs two CUDA devices (chip_smoke.py --dist on a "
+                    "multi-GPU host)")
+    import chip_smoke
+
+    world = 4 if count >= 4 else 2
+    inp = make_inputs()
+    rep = {"w": inp["rep/w"], "b": inp["rep/b"],
+           "big": np.random.default_rng(2).normal(
+               size=(2048, 2048)).astype(np.float32)}
+    own, ef = ({k: inp[f"dist/{e}{k}"] for k in ("w", "b")}
+               for e in ("", "e"))
+    cards, _ = chip_smoke.dist_collective_pair(world, "multi-GPU psum",
+                                               (rep, own, ef))
+    assert [c["device"] for c in cards] == [f"cuda:{r}"
+                                            for r in range(world)]
+    for card in cards:
+        assert len([k for k in card if " mean " in k]) == 5
+        for k, x in rep.items():
+            scale = float(np.abs(x).max()) / 127.0
+            got = card[f"replicated mean {k}"]
+            assert float(np.abs(got - x).max()) <= 3 * scale

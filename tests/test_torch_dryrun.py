@@ -292,7 +292,7 @@ def runs(tmp_path_factory):
                      f"SHAPES = {shapes!r}\nBAND_CELLS = {BAND_CELLS!r}\n"
                      + JAX_CODE, WORLD, out)
     try:
-        ranks = run_ranks(rank_main, WORLD)
+        ranks = run_ranks(rank_main, WORLD, backend="gloo")
         cell = dryrun.run_cell("olmo-1b", "train_4k", False)
     finally:
         want = finish_jax(proc, out)
