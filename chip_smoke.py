@@ -139,7 +139,41 @@ Phases (each prints its seconds; any failure exits non-zero):
               printed with its value, met or not; "bench twins" entry of
               ``launches_by_path`` (the packed join, the row count and the
               selection must launch);
-18. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
+18. dsl trees — the random DSL trees of tests/test_dsl_prop.py
+              (``benchmarks/torch_dsl_trees.py``: an ``or_`` of ``seq`` /
+              ``and_`` branches with negation at any position, Kleene
+              closure, chained ``<`` / ``>`` predicates, windows of 3-8)
+              through ``repro_torch.cep.open(...).run`` on the card, with
+              the launch counters zeroed just before and read just after.
+              Narrow leg: the 12 + 6 seeds its derandomized ``@given``
+              draws, at its sizes (K = 1 and 3, ``buffer_capacity=64``,
+              ``match_capacity=512``, 3 chunks of 128), K = 3 on the auto
+              and the tree plan: each run equals the same run with
+              ``backend="ref"`` (integer telemetry) and the port's
+              ``RefEngine`` summed per branch, per partition.  Full-width
+              leg: the first four K = 3 trees, as they come, monitored on
+              phase 4's K=16 fleet (its capacities, 16 chunks) per chunk
+              and with ``superchunk=8`` on the order plan and on the tree
+              plan (where a plan refuses a tree, both backends must refuse
+              it alike): the window equals the per-chunk run, and each run
+              over the first four chunks equals its ``backend="ref"``
+              rerun; a tree run whose escalated capacity passes the
+              survivor selection's int32 ranks (2**31 cells a partition)
+              stops there and says so; prints events/s, overflow,
+              dropped and peak device memory per run.  The packed join,
+              the row count, the unpacked join and the selection must each
+              launch ("dsl trees" entry of ``launches_by_path``);
+19. system claims — the three claims of tests/test_system.py at its sizes
+              on the card: six ``AdaptiveRunner`` runs (greedy, the
+              chained 4-type SEQ, 80 chunks of 256 at ``base_rate=15``,
+              seed 3, ``b_cap=128``, ``m_cap=4096``, regret measured), each
+              equal to its ``backend="ref"`` rerun (integer metrics, the
+              regret to the bit); the reference's assertions must hold:
+              invariant at d=0 on the Pareto frontier of the traffic
+              stream, invariant beating threshold t=0.4 on regret or
+              replans, unconditional over-adapting on stocks ("system
+              claims" entry of ``launches_by_path``);
+20. scenarios — each bundled scenario (``repro_torch.data.scenarios``)
               at its own partitions over its 80 chunks, replayed per
               segment under the adaptive (per chunk and S=8), static and
               pinned configurations (phase 17's replay rows), with the
@@ -152,7 +186,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               loop's single-stream shapes (K = 1: the packed join and
               row count at M = 8192, B = 128; the tree join and the
               selection at the escalation limit M = B = 32768);
-19. lm serving — ``repro_torch.launch.serve.main(["--arch", a,
+21. lm serving — ``repro_torch.launch.serve.main(["--arch", a,
               "--requests", "16", "--slots", "4"])`` at full width and
               depth (f32, random weights drawn on the card) for
               olmo-1b, mamba2-1.3b and zamba2-1.2b: every request
@@ -165,7 +199,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               forward on the CPU is from the card's (measurements: at
               full depth the reference's init makes olmo's f32 forward
               chaotic, PERF.md);
-20. lm families — one config per family at full width, cut to two
+22. lm families — one config per family at full width, cut to two
               layers (paligemma: one), weights drawn on the CPU and
               copied to the card: forward, prefill and 4 decode steps on
               the card equal the port's CPU run within 2e-3 of the
@@ -174,7 +208,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               teacher-forced decode equals the forward, and a two-slot
               ``ServingEngine`` (one prompt padded to its bucket) equals
               the forward (token families).
-21. lm train — ``repro_torch.launch.train.main(["--arch", "olmo-1b",
+23. lm train — ``repro_torch.launch.train.main(["--arch", "olmo-1b",
               "--steps", "20", "--batch", "8", "--seq", "128"])`` at full
               width and depth (f32, TF32 off, remat none, weights drawn on
               the card): every step's ce, grad_norm and lr finite, every
@@ -183,48 +217,48 @@ Phases (each prints its seconds; any failure exits non-zero):
               peak memory; then 3 more steps under ``torch.profiler``
               (device-busy share, top ops, the optimizer's range) and one
               AdamW update timed with CUDA events beside its byte bound;
-22. lm train consistency — olmo-1b at full width, 2 layers, weights drawn
+24. lm train consistency — olmo-1b at full width, 2 layers, weights drawn
               on the card and copied to the CPU: per-leaf gradients card
               vs CPU; 3 train steps (ce, grad_norm, parameter updates);
               remat full and dots against none on the card (bit for bit
               or not); microbatches=2 against 1;
-23. lm train resume — the same cut through ``launch.train``: 10 straight
+25. lm train resume — the same cut through ``launch.train``: 10 straight
               steps against 5 with ``--ckpt-dir``/``--ckpt-every 5`` and a
               restart with ``--resume`` to 10, parameters bit-equal;
               prints checkpoint snapshot, write and restore seconds and
               bytes; the directory (``build/lm_train_ckpt``) is deleted;
-24. lm train moe placement — deepseek-moe-16b at full width, 2 layers,
+26. lm train moe placement — deepseek-moe-16b at full width, 2 layers,
               ``--adaptive-placement``, 12 steps: every step finite,
               ``expert_load`` (2, 64) summing to T * 6 per layer; at each
               deployment the loss of that step's batch equals the
               unrelocated model's within 1e-5 and every MoE layer's
               weights, router columns, m and v moved by the relocation;
               prints governor replans and deployments.
-25. lm train f64 — "lm train consistency"'s cut, weights and batch with
+27. lm train f64 — "lm train consistency"'s cut, weights and batch with
               the model in float64 (``float64_model``: the phase patches
               the dtypes, not the package): logits and per-leaf gradients
               card vs CPU within ``F64_LOGIT_TOL`` / ``F64_GRAD_TOL``, the
               f32 gaps scaled by the formats' rounding;
-26. lm train moe resume — deepseek-moe-16b at 1 layer through
+28. lm train moe resume — deepseek-moe-16b at 1 layer through
               ``launch.train``: 2 straight steps against 1 step + a
               checkpoint + ``--resume`` to 2, parameters bit-equal (the
               MoE combine and dispatch add nothing atomically);
-27. dist collective — a one-rank default group (``cpu:gloo,cuda:nccl``,
+29. dist collective — a one-rank default group (``cpu:gloo,cuda:nccl``,
               TCP store on 127.0.0.1) and ``launch.mesh.make_host_mesh(1,
               1)``: ``compressed_psum_tree`` on the reference test's leaves
               and a 2048 x 2048 one, card (NCCL) vs CPU (gloo) bit for
               bit, the reference's bounds, int8 payloads only;
-28. dist compressed train — ``launch.train``'s OLMo-1B at full size
+30. dist compressed train — ``launch.train``'s OLMo-1B at full size
               through ``make_train_step(compressed_grads=True, mesh=...)``
               with error feedback, 6 steps: finite, every parameter
               moved, residuals within 2 scales; ms per step beside "lm
               train"'s, the all-reduce's CUDA-event ms, int8 bytes per
               step, peak memory;
-29. dist compressed consistency — one compressed step of the 2-layer
+31. dist compressed consistency — one compressed step of the 2-layer
               olmo on the card and on the CPU from the card's gradients:
               residuals bit-equal, parameters within ``DIST_PARAM_TOL``;
               each device's own step printed beside it;
-30. dist moe ep — deepseek-moe-16b at 2 layers: the loss's forward and
+32. dist moe ep — deepseek-moe-16b at 2 layers: the loss's forward and
               backward with every MoE layer on the expert-parallel path
               (n_ep = 1 over NCCL) against the dense path, bit for bit.
               The CEP kernels' launch counters are zeroed before each LM
@@ -235,7 +269,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               collective", "dist compressed train", "dist compressed
               consistency" and "dist moe ep" entries of
               ``launches_by_path``;
-31. dryrun  — "dryrun cells": ``repro_torch.launch.dryrun.run_cell``
+33. dryrun  — "dryrun cells": ``repro_torch.launch.dryrun.run_cell``
               (``meta`` tensors on the host's CPU, H100 terms) for
               olmo-1b/train_4k, deepseek-moe-16b/train_4k,
               mamba2-1.3b/long_500k and yi-34b/decode_32k on the
@@ -247,7 +281,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               the compute term beside the measured ms; and with
               ``compressed_grads`` the all-to-all + all-gather bytes equal
               to "dist compressed train"'s int8 wire log per step;
-32. examples — each ``examples/torch_*.py`` at its default size on the
+34. examples — each ``examples/torch_*.py`` at its default size on the
               card (its output and seconds): the CEP examples launch the
               packed join and the selection, ``torch_fleet_demo``'s
               per-tenant oracle check passes; "example <name>" entries
@@ -265,7 +299,8 @@ phase's "mesh-order" and "mesh-rulebook" (D = 1) and
 "mesh-{order,tree,rulebook}-d2", "-d4" (and "-auto" across GPUs), the
 adaptive
 loop's "adaptive-greedy" and "adaptive-zstream" (all runs of a
-planner).  A kernel's record also
+planner), "dsl trees" (wrapper launches plus graph replays of its window
+runs) and "system claims" (its six kernel runs).  A kernel's record also
 holds its ``single_stream`` shape, times and bound.
 
 The survivor selection's record is a JSON line of its own; the line
@@ -402,6 +437,45 @@ RUN_FIELDS = ("chunks", "events", "full_matches", "pm_created", "overflow",
 # The adaptive oracle: each set at size 4 over 20 chunks.
 ORACLE_SIZE = 4
 ORACLE_CHUNKS = 20
+
+# The "dsl trees" phase: the random DSL trees of tests/test_dsl_prop.py
+# (benchmarks/torch_dsl_trees.py: the 12 + 6 seeds its derandomized @given
+# draws) at its capacities, then the first DSL_WIDE_SEEDS trees of the K = 3 list, as
+# they come, at the FlowSense fleet's width over DSL_WIDE_CHUNKS chunks.
+DSL_CAPS = dict(buffer_capacity=64, match_capacity=512)
+DSL_WIDE_SEEDS = 4
+DSL_WIDE_CHUNKS = 16
+# Chunks of the full-width runs that the plain versions rerun.  An
+# escalated capacity persists from chunk to chunk (up to one doubling a
+# chunk on the tree plan), and on the first K = 3 tree (an AND of three
+# types in a 4.95 window) the plain versions' order reruns over all 16
+# chunks took 15.6 and 19.9 s, and their tree rerun ran out of the card's
+# memory.  The first four chunks already escalate (2-5 times a run).
+DSL_WIDE_REF_CHUNKS = 4
+# The strip kernels the phase must launch (the row count: seeds with
+# negation or Kleene; the unpacked join: tree plans).
+DSL_KERNELS = ("window_join_packed", "window_join_rowcount", "window_join",
+               "select_survivors")
+# What a plan may raise for a tree it cannot run (both backends alike).
+DSL_REFUSALS = (ValueError, TypeError, NotImplementedError)
+# The survivor selection's refusal (kernels/window_join.py): a capacity
+# that escalated until one partition's join had 2**31 cells or more.  The
+# tree plan keeps an escalated capacity from chunk to chunk, and the first
+# K = 3 tree doubles it every chunk at full width.
+SELECT_LIMIT = "exceeds the selection's grid or int32 ranks"
+
+# The "system claims" phase: tests/test_system.py's six runs (the greedy
+# planner on its chained 4-type SEQ, regret measured): (policy, stream
+# kind, policy arguments).
+SYSTEM_RUNS = (("invariant", "traffic", (("d", 0.0),)),
+               ("unconditional", "traffic", ()),
+               ("static", "traffic", ()),
+               ("threshold", "traffic", (("t", 0.4),)),
+               ("unconditional", "stocks", ()),
+               ("invariant", "stocks", (("d", 0.3),)))
+SYSTEM_STREAM = dict(n_types=4, n_attrs=1, n_chunks=80, chunk_cap=256,
+                     base_rate=15.0, seed=3)
+SYSTEM_CAPS = dict(b_cap=128, m_cap=4096)
 
 # The LM serving launcher at full size (repro/launch/serve.py's defaults:
 # cache_len 256, max_new 16, classes [16, 32, 64]), per arch.
@@ -1987,6 +2061,244 @@ def check_monitored_engine(device="cuda"):
             raise AssertionError(f"monitored engine {kind}: no flag fired")
         print(f"   {kind}: 15 chunks, flags == host mirror every chunk, "
               f"{fired} flags fired and replanned, {matches} matches")
+
+
+def dsl_run(tree, k, plan, recs, cfg, monitor=False):
+    """``cep.open(tree, ...).run(recs)`` under the ``RuntimeConfig``
+    ``cfg``: (telemetry, wall seconds, peak device memory in bytes), or
+    the exception a plan that refuses the tree raised."""
+    import torch
+
+    from repro_torch import cep
+
+    cuda = cfg.device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()      # an earlier run's escalated blocks
+        sync_all(reset_peaks=True)
+    t = time.perf_counter()
+    try:
+        tel = cep.open(tree, partitions=k, plan=plan, monitor=monitor,
+                       config=cfg).run(recs)
+    except DSL_REFUSALS as exc:
+        return exc, 0.0, 0
+    if cuda:
+        sync_all()
+    return (tel, time.perf_counter() - t,
+            torch.cuda.max_memory_allocated() if cuda else 0)
+
+
+def dsl_pair(what, run):
+    """``run(backend)`` with the kernels and with the plain versions: equal
+    integer telemetry, or the same refusal.  Returns the kernel run's
+    (telemetry, seconds, peak bytes) and the plain run's seconds."""
+    from benchmarks.torch_fleet_bench import same_telemetry
+
+    got, ref = run(None), run("ref")
+    if isinstance(got[0], Exception) or isinstance(ref[0], Exception):
+        if type(got[0]) is not type(ref[0]):
+            raise AssertionError(f"{what}: kernels {got[0]!r} vs plain "
+                                 f"{ref[0]!r}")
+        return (*got, ref[1])
+    same_telemetry(got[0], ref[0], f"{what}: kernels vs plain")
+    return (*got, ref[1])
+
+
+def check_dsl_narrow(device="cuda"):
+    """Every seed of tests/test_dsl_prop.py at its sizes: the kernel run
+    equals the plain-version run and the port's ``RefEngine`` summed per
+    branch, per partition; K = 3 seeds also on the tree plan."""
+    from benchmarks import torch_dsl_trees as trees
+    from repro_torch.cep import RefEngine, RuntimeConfig
+
+    runs = refused = 0
+    for k, seeds in ((1, trees.K1_SEEDS), (3, trees.K3_SEEDS)):
+        for seed in seeds:
+            tree, branches, recs = trees.case(seed, k)
+            parts = [recs] if k == 1 else recs
+            want = [sum(RefEngine(b.build()).run(r).full_matches
+                        for b in branches) for r in parts]
+            line = []
+            for plan in ("auto",) if k == 1 else ("auto", "tree"):
+                tel, _, _, _ = dsl_pair(
+                    f"dsl seed {seed} K={k} plan={plan}",
+                    lambda backend: dsl_run(tree, k, plan, recs,
+                                            RuntimeConfig(
+                                                device=device,
+                                                backend=backend,
+                                                **DSL_CAPS)))
+                if isinstance(tel, Exception):
+                    refused += 1
+                    line.append(f"{plan}: refused ({type(tel).__name__})")
+                    continue
+                if tel.per_partition_matches.tolist() != want:
+                    raise AssertionError(
+                        f"dsl seed {seed} K={k} plan={plan}: matches "
+                        f"{tel.per_partition_matches.tolist()} != oracle "
+                        f"{want}")
+                runs += 1
+                line.append(f"{plan}: {tel.matches} matches, overflow "
+                            f"{tel.overflow}")
+            print(f"   seed {seed} K={k} ({len(branches)} branch"
+                  f"{'es' if len(branches) > 1 else ''}): "
+                  + "; ".join(line) + f"; oracle {want}")
+    print(f"   narrow leg: {runs} runs equal to the plain versions and to "
+          f"RefEngine, {refused} refusals alike in both backends")
+
+
+def check_dsl_wide(smi, device="cuda", k=K_MAIN, n_chunks=DSL_WIDE_CHUNKS,
+                   caps=None, ref_chunks=DSL_WIDE_REF_CHUNKS):
+    """The first K = 3 trees at the FlowSense fleet's width, monitored:
+    the order plan per chunk and with ``superchunk``, and the tree plan,
+    each over ``n_chunks`` chunks (the window equal to the per-chunk run)
+    and over the first ``ref_chunks`` equal to the plain versions."""
+    from benchmarks import torch_dsl_trees as trees
+    from benchmarks.torch_fleet_bench import same_telemetry
+
+    caps = caps or dict(buffer_capacity=B_CAP, match_capacity=M_CAP,
+                        chunk_capacity=CHUNK_CAP)
+    print(f"   {smi}")
+    for seed in trees.K3_SEEDS[:DSL_WIDE_SEEDS]:
+        tree, branches, _ = trees.case(seed, 3)
+        print(f"   seed {seed}: " + " | ".join(str(b.build().operator.value)
+                                              + str(b.build().type_ids)
+                                              for b in branches))
+        order = None
+        for plan, sc in (("order", 1), ("order", SUPERCHUNK), ("tree", 1)):
+            what = f"dsl wide seed {seed} plan={plan} superchunk={sc}"
+
+            def run(backend, chunks):
+                return dsl_run(tree, k, plan,
+                               streams(k, chunks, BASE_RATE, CHUNK_CAP),
+                               path_config(plan, device=device,
+                                           backend=backend, superchunk=sc,
+                                           **caps), monitor=True)
+
+            part, _, _, ref_secs = dsl_pair(
+                f"{what} over {ref_chunks} chunks",
+                lambda backend: run(backend, ref_chunks))
+            tel, secs, peak = run(None, n_chunks)
+            if isinstance(part, Exception):
+                if type(tel) is not type(part):
+                    raise AssertionError(f"{what}: {tel!r} vs {part!r}")
+                print(f"     plan={plan} superchunk={sc}: refused in both "
+                      f"backends ({type(tel).__name__}: {tel})")
+                continue
+            if isinstance(tel, Exception):
+                if SELECT_LIMIT not in str(tel):
+                    raise AssertionError(f"{what}: {tel!r}")
+                print(f"     plan={plan} superchunk={sc}: stopped, its "
+                      f"escalated capacity passed the selection's int32 "
+                      f"ranks ({tel}); first {ref_chunks} chunks equal to "
+                      f"backend='ref' ({ref_secs:.3f} s, escalations "
+                      f"{part.escalations})", flush=True)
+                continue
+            if plan == "order" and sc == 1:
+                order = tel
+            elif plan == "order":
+                same_telemetry(tel, order, f"{what} vs per chunk")
+            print(f"     plan={plan} superchunk={sc}: {tel.events} events "
+                  f"in {secs:.3f} s = {tel.events / secs:.1f} events/s, "
+                  f"matches {tel.matches}, overflow {tel.overflow}, dropped "
+                  f"{tel.dropped}, escalations {tel.escalations}, replans "
+                  f"{tel.replans}, peak device memory "
+                  f"{peak / 2 ** 30:.3f} GiB"
+                  + ("; equal to per chunk" if sc > 1 else "")
+                  + f"; first {ref_chunks} chunks equal to backend='ref' "
+                  f"({ref_secs:.3f} s, escalations {part.escalations})",
+                  flush=True)
+
+
+def check_dsl_trees(smi):
+    """The "dsl trees" phase with the launch counters zeroed just before
+    and read just after; returns the launch counts."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    check_dsl_narrow()
+    check_dsl_wide(smi)
+    launches = {n: kops.LAUNCHES[n] + kops.GRAPH_LAUNCHES[n]
+                for n in kops.LAUNCHES}
+    for name in DSL_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"dsl trees never launched {name}")
+    print(f"   launches (wrapper + graph replays): {launches}")
+    return launches
+
+
+def system_run(policy, kind, kw, backend=None, device="cuda"):
+    """tests/test_system.py::run on ``device``: (RunMetrics, wall s)."""
+    from repro_torch.core import AdaptiveRunner, EngineConfig, make_policy
+    from repro_torch.core.patterns import chain_predicates, seq_pattern
+    from repro_torch.data.cep_streams import StreamConfig, make_stream
+
+    pat = seq_pattern([0, 1, 2, 3], window=4.0,
+                      predicates=chain_predicates([0, 1, 2, 3], theta=-0.3))
+    runner = AdaptiveRunner(pat, planner="greedy",
+                            policy=make_policy(policy, **dict(kw)),
+                            engine_cfg=EngineConfig(device=device,
+                                                    backend=backend,
+                                                    **SYSTEM_CAPS),
+                            measure_regret=True)
+    t = time.perf_counter()
+    m = runner.run(make_stream(kind, StreamConfig(**SYSTEM_STREAM)))
+    if device == "cuda":
+        sync_all()
+    return m, time.perf_counter() - t
+
+
+def check_system_claims(device="cuda"):
+    """The three claims of tests/test_system.py on ``device``: each run
+    equal to its plain-version run (integer metrics, regret to the bit),
+    the reference's assertions on the kernel runs.  Returns the launch
+    counts of the kernel runs."""
+    from repro_torch.kernels import ops as kops
+
+    runs, launches = {}, {n: 0 for n in kops.LAUNCHES}
+    for policy, kind, kw in SYSTEM_RUNS:
+        kops.reset_launch_counts()
+        m, wall = system_run(policy, kind, kw, device=device)
+        for n in launches:
+            launches[n] += kops.LAUNCHES[n]
+        ref, ref_wall = system_run(policy, kind, kw, "ref", device)
+        what = f"system {policy} {kind} {dict(kw)}"
+        same_run_metrics(m, ref, f"{what}: kernels vs plain")
+        if float.hex(m.regret) != float.hex(ref.regret):
+            raise AssertionError(f"{what}: regret {m.regret} != "
+                                 f"{ref.regret}")
+        runs[policy, kind] = m
+        print(f"   {what}: regret {m.regret!r}, replans {m.replans}, "
+              f"deployments {m.deployments}, false positives "
+              f"{m.false_positives}, migration chunks {m.migration_chunks},"
+              f" matches {m.full_matches}, {m.events / wall:.1f} events/s "
+              f"({wall:.3f} s; plain rerun {ref_wall:.3f} s, equal)",
+              flush=True)
+    inv, unc = runs["invariant", "traffic"], runs["unconditional", "traffic"]
+    sta, thr = runs["static", "traffic"], runs["threshold", "traffic"]
+    claims = {
+        "invariant on the Pareto frontier (traffic)": (
+            inv.regret <= unc.regret + 1e-6 and inv.replans < unc.replans / 5
+            and inv.regret < sta.regret and inv.false_positives == 0),
+        "invariant beats threshold on regret or replans": (
+            inv.regret <= thr.regret + 1e-6 or inv.replans <= thr.replans),
+    }
+    s_unc, s_inv = runs["unconditional", "stocks"], runs["invariant",
+                                                         "stocks"]
+    claims["unconditional over-adapts on stocks"] = (
+        s_unc.replans > 10 * max(s_inv.replans, 1)
+        and s_unc.migration_chunks >= s_inv.migration_chunks
+        and s_unc.full_matches == s_inv.full_matches)
+    for claim, held in claims.items():
+        print(f"   {claim}: {'holds' if held else 'FAILS'}")
+    if not all(claims.values()):
+        raise AssertionError("system claims: "
+                             + ", ".join(c for c, h in claims.items()
+                                         if not h))
+    if device == "cuda":
+        for name in ("window_join_packed", SELECT):
+            if launches[name] <= 0:
+                raise AssertionError(f"system claims never launched {name}")
+    print(f"   launches of the kernel runs: {launches}")
+    return launches
 
 
 def window_peak(sc):
@@ -4867,6 +5179,14 @@ def main() -> int:
     t = phase("bench twins")
     replay_runs, launches["bench twins"] = check_bench_twins()
     done("bench twins", t)
+
+    t = phase("dsl trees")
+    launches["dsl trees"] = check_dsl_trees(smi)
+    done("dsl trees", t)
+
+    t = phase("system claims")
+    launches["system claims"] = check_system_claims()
+    done("system claims", t)
 
     t = phase("scenarios")
     check_scenarios(replay_runs)

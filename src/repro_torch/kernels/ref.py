@@ -54,6 +54,31 @@ def _row(x, c):
     return x[..., c, None, None]
 
 
+def _shared_ops(ops):
+    """Per constraint row, the op code every batch element shares there,
+    else None.  Reading the codes syncs the host with a CUDA device, so
+    while a CUDA graph is being captured every row is None (the selecting
+    formula, capture-safe)."""
+    rows = ops.reshape(-1, ops.shape[-1])
+    if rows.shape[0] == 0 or (ops.is_cuda and
+                              torch.cuda.is_current_stream_capturing()):
+        return [None] * ops.shape[-1]
+    lo, hi = rows.min(dim=0).values.tolist(), rows.max(dim=0).values.tolist()
+    return [a if a == b else None for a, b in zip(lo, hi)]
+
+
+def _cmp_row(op, l, r, th):
+    """One row's plane for a known op code: the comparison ``cmp_op``
+    selects, alone (None where every cell is true)."""
+    if op == 0:
+        return None
+    if op == 1:
+        return l < r + th
+    if op == 2:
+        return l > r - th
+    return torch.abs(l - r) <= th
+
+
 def window_join_packed_ref(L, R, ops8, thetas, mvalid, bvalid):
     """Packed oracle: ok[m, b] = mvalid & bvalid & AND_c row_c.
 
@@ -61,18 +86,29 @@ def window_join_packed_ref(L, R, ops8, thetas, mvalid, bvalid):
     thetas: (C,) or (..., C) f32, mvalid: (..., M), bvalid: (..., B)
     i8/u8/bool.  Returns (..., M, B) bool.  The float comparisons are the
     exact expressions of ``cmp_op``; op-codes outside 0..3 select nothing.
+    A row whose op code every batch element shares computes only that
+    code's comparison (the same values, a fraction of the work), except
+    during a CUDA-graph capture.
     """
     acc = (mvalid > 0)[..., :, None] & (bvalid > 0)[..., None, :]
+    shared = _shared_ops(ops8)
     for c in range(L.shape[-2]):  # keeps the working set at (..., M, B)
         l = L[..., c, :, None]
         r = R[..., c, None, :]
         th = _row(thetas, c)
-        o = _row(ops8, c)
-        lt = l < r + th
-        gt = l > r - th
-        ab = torch.abs(l - r) <= th
-        ok = (lt & (o == 1)) | (gt & (o == 2)) | (ab & (o == 3)) | (o == 0)
-        acc = acc & ok
+        if shared[c] is not None and shared[c] not in (0, 1, 2, 3):
+            acc = torch.zeros_like(acc)
+            continue
+        if shared[c] is not None:
+            ok = _cmp_row(shared[c], l, r, th)
+        else:
+            o = _row(ops8, c)
+            lt = l < r + th
+            gt = l > r - th
+            ab = torch.abs(l - r) <= th
+            ok = (lt & (o == 1)) | (gt & (o == 2)) | (ab & (o == 3)) | (o == 0)
+        if ok is not None:
+            acc = acc & ok
     return acc
 
 
@@ -88,18 +124,49 @@ def window_join_ref(L, R, ops, thetas):
     M, B = L.shape[-1], R.shape[-1]
     acc = torch.ones(L.shape[:-2] + (M, B), dtype=torch.bool,
                      device=L.device)
+    shared = _shared_ops(ops)
     for c in range(L.shape[-2]):
-        ok = cmp_op(_row(ops, c), L[..., c, :, None], R[..., c, None, :],
-                    _row(thetas, c))
-        acc = acc & ok
+        l, r, th = L[..., c, :, None], R[..., c, None, :], _row(thetas, c)
+        if shared[c] is None or shared[c] not in (0, 1, 2, 3):
+            ok = cmp_op(_row(ops, c), l, r, th)
+        else:
+            ok = _cmp_row(shared[c], l, r, th)
+        if ok is not None:
+            acc = acc & ok
     return acc
+
+
+# Cells of the (..., M, B) plane that one pass of a plain join covers: the
+# joins that reduce or pack their mask go over blocks of rows, so their
+# temporaries (a few bytes a cell) stay bounded at escalated widths, where
+# a whole plane would take tens of GiB.
+_JOIN_BLOCK_CELLS = 1 << 28
+
+
+def _row_blocks(L, R):
+    """Row ranges ``(m0, m1)`` of ``L``'s M axis, each covering at most
+    ``_JOIN_BLOCK_CELLS`` cells of the batched (..., M, B) plane."""
+    m = L.shape[-1]
+    cells_per_row = max(1, math.prod(L.shape[:-2]) * R.shape[-1])
+    step = max(1, _JOIN_BLOCK_CELLS // cells_per_row)
+    return [(m0, min(m0 + step, m)) for m0 in range(0, m, step)] or [(0, 0)]
+
+
+def _by_row_blocks(per_block, L, R, dims):
+    """``per_block(m0, m1)`` over the row blocks, each output joined along
+    its M axis (``dims``, one per output)."""
+    parts = [per_block(m0, m1) for m0, m1 in _row_blocks(L, R)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(outs, dim=d) for outs, d in zip(zip(*parts),
+                                                           dims))
 
 
 def window_join_count_ref(L, R, ops, thetas):
     """Total matching (m, b) pairs: the sum of ``window_join_ref``'s mask
     — a 0-d int32 without a batch axis, (...,) int32 with one."""
-    return window_join_ref(L, R, ops, thetas).sum(dim=(-2, -1),
-                                                  dtype=torch.int32)
+    return window_join_rowcount_ref(L, R, ops, thetas).sum(
+        dim=-1, dtype=torch.int32)
 
 
 def window_join_rowcount_ref(L, R, ops, thetas):
@@ -115,7 +182,10 @@ def window_join_rowcount_ref(L, R, ops, thetas):
     result differs, and the port (plain version and CUDA kernel) follows
     ``cmp_op``.
     """
-    return window_join_ref(L, R, ops, thetas).sum(dim=-1, dtype=torch.int32)
+    (counts,) = _by_row_blocks(
+        lambda m0, m1: (window_join_ref(L[..., m0:m1], R, ops, thetas)
+                        .sum(dim=-1, dtype=torch.int32),), L, R, (-1,))
+    return counts
 
 
 def pack_bits(mask):
@@ -152,13 +222,17 @@ def _bits_and_counts(mask):
 def window_join_bits_ref(L, R, ops, thetas):
     """``window_join_ref``'s mask as (bit words (..., M, ceil(B/32)) int32,
     row counts (..., M) int32)."""
-    return _bits_and_counts(window_join_ref(L, R, ops, thetas))
+    return _by_row_blocks(
+        lambda m0, m1: _bits_and_counts(window_join_ref(
+            L[..., m0:m1], R, ops, thetas)), L, R, (-2, -1))
 
 
 def window_join_packed_bits_ref(L, R, ops8, thetas, mvalid, bvalid):
     """``window_join_packed_ref``'s mask as (bit words, row counts)."""
-    return _bits_and_counts(window_join_packed_ref(L, R, ops8, thetas,
-                                                   mvalid, bvalid))
+    return _by_row_blocks(
+        lambda m0, m1: _bits_and_counts(window_join_packed_ref(
+            L[..., m0:m1], R, ops8, thetas, mvalid[..., m0:m1], bvalid)),
+        L, R, (-2, -1))
 
 
 def _popcount(words):
@@ -185,8 +259,10 @@ def _select_in_word(word, rank):
 
 
 # Output slots per partition that one pass of the plain selection handles
-# (its temporaries are a few int64 per slot).
+# (its temporaries are a few int64 per slot), and the words it ranks in
+# one pass, whole partitions at a time (a few int64 per word).
 _SELECT_BLOCK = 1 << 20
+_SELECT_WORDS = 1 << 26
 
 
 def select_survivors_ref(bits, row_counts, b, out_cap):
@@ -202,7 +278,8 @@ def select_survivors_ref(bits, row_counts, b, out_cap):
     ``j - start`` set bits below it.  Slots ``j`` at or past the total
     (no such word) get ``M * b``.  The slots go in blocks of
     ``_SELECT_BLOCK`` per partition, so memory stays bounded when
-    ``out_cap`` is far past the survivors.  The row counts (the words'
+    ``out_cap`` is far past the survivors, and the partitions in groups
+    of about ``_SELECT_WORDS`` words.  The row counts (the words'
     popcounts per row) are not read.
     """
     *lead, m, w = bits.shape
@@ -212,18 +289,23 @@ def select_survivors_ref(bits, row_counts, b, out_cap):
                      device=dev)
     if n_words == 0:
         return out.reshape(*lead, out_cap)
-    words = bits.reshape(math.prod(lead), n_words)
-    pc = _popcount(words)
-    incl = torch.cumsum(pc, dim=1)
-    for j0 in range(0, out_cap, _SELECT_BLOCK):
-        j = torch.arange(j0, min(j0 + _SELECT_BLOCK, out_cap), device=dev)
-        j = j.expand(words.shape[0], j.shape[0]).contiguous()
-        wi = torch.searchsorted(incl, j, right=True)  # first incl > j
-        live = wi < n_words
-        wi = torch.clamp(wi, max=n_words - 1)
-        rank = j - (torch.gather(incl, 1, wi) - torch.gather(pc, 1, wi))
-        word = torch.gather(words, 1, wi).to(torch.int64) & 0xFFFFFFFF
-        col = _select_in_word(word, rank)
-        idx = (wi // w) * b + (wi % w) * 32 + col
-        out[:, j0:j0 + j.shape[1]] = torch.where(live, idx, m * b)
+    all_words = bits.reshape(math.prod(lead), n_words)
+    group = max(1, _SELECT_WORDS // n_words)
+    for p0 in range(0, all_words.shape[0], group):
+        words = all_words[p0:p0 + group]
+        pc = _popcount(words)
+        incl = torch.cumsum(pc, dim=1)
+        for j0 in range(0, out_cap, _SELECT_BLOCK):
+            j = torch.arange(j0, min(j0 + _SELECT_BLOCK, out_cap),
+                             device=dev)
+            j = j.expand(words.shape[0], j.shape[0]).contiguous()
+            wi = torch.searchsorted(incl, j, right=True)  # first incl > j
+            live = wi < n_words
+            wi = torch.clamp(wi, max=n_words - 1)
+            rank = j - (torch.gather(incl, 1, wi) - torch.gather(pc, 1, wi))
+            word = torch.gather(words, 1, wi).to(torch.int64) & 0xFFFFFFFF
+            col = _select_in_word(word, rank)
+            idx = (wi // w) * b + (wi % w) * 32 + col
+            out[p0:p0 + group, j0:j0 + j.shape[1]] = torch.where(
+                live, idx, m * b)
     return out.reshape(*lead, out_cap)

@@ -203,6 +203,77 @@ def test_batched_plain_versions_equal_per_partition_loop(rng):
         assert int(totals[k]) == int(want.sum())
 
 
+@pytest.mark.parametrize("ops_rows", [
+    [[1, 0, 2, 3, 1], [1, 2, 2, 0, 3], [1, 3, 2, 1, 0]],
+    [[0, 5, 1, -1, 3], [0, 5, 2, 4, 3], [0, 5, 3, 1, 3]],
+])
+def test_plain_joins_shared_and_mixed_op_rows_match_jax(ops_rows, rng):
+    """On the CPU a row whose op code every partition shares computes only
+    that code's comparison: rows shared and mixed across K, codes outside
+    0..3 included (the packed join selects nothing for them, the unpacked
+    join and the row count count them as true), against the JAX package's
+    plain versions per partition."""
+    K, C, M, B = 3, 5, 70, 45
+    L = _coarse(rng, (K, C, M))
+    R = _coarse(rng, (K, C, B))
+    op = np.array(ops_rows, np.int32)
+    th = _coarse(rng, (K, C))  # per-partition, negative ones included
+    mv = (rng.random((K, M)) > 0.3).astype(np.int8)
+    bv = (rng.random((K, B)) > 0.3).astype(np.int8)
+    op8 = op.astype(np.int8)
+    packed = ref.window_join_packed_ref(*_t(L, R, op8, th, mv, bv)).numpy()
+    joined = ref.window_join_ref(*_t(L, R, op, th)).numpy()
+    counts = ref.window_join_rowcount_ref(*_t(L, R, op, th)).numpy()
+    for k in range(K):
+        assert (packed[k] == np.asarray(jax_packed_ref(
+            L[k], R[k], op8[k], th[k], mv[k], bv[k]))).all()
+        want = np.asarray(jax_join_ref(L[k], R[k], op[k], th[k]))
+        assert (joined[k] == want).all()
+        assert (counts[k] == np.asarray(jax_rowcount_ref(
+            L[k], R[k], op[k], th[k]))).all()
+
+
+@pytest.mark.parametrize("cells", [1, 64, 1000])
+def test_plain_joins_in_row_blocks_equal_one_pass(cells, rng, monkeypatch):
+    """The plain joins that count or pack their mask go over blocks of rows
+    (``ref._JOIN_BLOCK_CELLS`` cells a pass; at the escalated widths a
+    whole plane did not fit on the card): any block size gives the
+    one-pass words and counts, equal to the JAX package's per partition."""
+    K, C, M, B = 2, 4, 67, 45
+    L = _coarse(rng, (K, C, M))
+    R = _coarse(rng, (K, C, B))
+    op = rng.integers(0, 4, size=(K, C)).astype(np.int32)
+    th = _coarse(rng, (K, C))
+    mv = (rng.random((K, M)) > 0.3).astype(np.int8)
+    bv = (rng.random((K, B)) > 0.3).astype(np.int8)
+    op8 = op.astype(np.int8)
+    args = _t(L, R, op, th)
+    packed_args = _t(L, R, op8, th, mv, bv)
+    whole = (ref.window_join_bits_ref(*args),
+             ref.window_join_packed_bits_ref(*packed_args),
+             ref.window_join_rowcount_ref(*args),
+             ref.window_join_count_ref(*args))
+    monkeypatch.setattr(ref, "_JOIN_BLOCK_CELLS", cells)
+    assert len(ref._row_blocks(args[0], args[1])) > 1
+    blocked = (ref.window_join_bits_ref(*args),
+               ref.window_join_packed_bits_ref(*packed_args),
+               ref.window_join_rowcount_ref(*args),
+               ref.window_join_count_ref(*args))
+    for got, want in zip(blocked[:2], whole[:2]):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(blocked[2], whole[2])
+    assert torch.equal(blocked[3], whole[3])
+    for k in range(K):
+        mask = np.asarray(jax_join_ref(L[k], R[k], op[k], th[k]))
+        assert (ref.unpack_bits(blocked[0][0][k], B).numpy() == mask).all()
+        assert (blocked[2][k].numpy() == mask.sum(-1)).all()
+        assert int(blocked[3][k]) == int(mask.sum())
+        pmask = np.asarray(jax_packed_ref(L[k], R[k], op8[k], th[k], mv[k],
+                                          bv[k]))
+        assert (ref.unpack_bits(blocked[1][0][k], B).numpy() == pmask).all()
+        assert (blocked[1][1][k].numpy() == pmask.sum(-1)).all()
+
+
 def test_dispatch_rules(rng):
     L, R, op, th, mv, bv = _t(*_case(rng, 3, 9, 7))
     before = dict(ops.LAUNCHES)
@@ -641,6 +712,23 @@ def test_select_in_slot_blocks_equals_one_pass(K, M, B, density, out_cap,
     bits = torch.from_numpy(_np_bits(mask))
     counts = torch.from_numpy(mask.sum(-1).astype(np.int32))
     monkeypatch.setattr(ref, "_SELECT_BLOCK", 7)
+    assert torch.equal(ref.select_survivors_ref(bits, counts, B, out_cap),
+                       _select_nonzero_loop(bits, counts, B, out_cap))
+
+
+@pytest.mark.parametrize("words", [1, 300])
+def test_select_in_partition_groups_equals_one_pass(words, rng,
+                                                    monkeypatch):
+    """The plain selection ranks the partitions' words in groups of about
+    ``_SELECT_WORDS`` words (whole partitions; at the escalated widths one
+    pass over every partition did not fit on the card): one partition a
+    pass, or a few, equal the nonzero loop."""
+    K, M, B, out_cap = 5, 30, 70, 400
+    mask = rng.random((K, M, B)) < 0.3
+    bits = torch.from_numpy(_np_bits(mask))
+    counts = torch.from_numpy(mask.sum(-1).astype(np.int32))
+    monkeypatch.setattr(ref, "_SELECT_WORDS", words)
+    monkeypatch.setattr(ref, "_SELECT_BLOCK", 64)
     assert torch.equal(ref.select_survivors_ref(bits, counts, B, out_cap),
                        _select_nonzero_loop(bits, counts, B, out_cap))
 

@@ -349,7 +349,7 @@ def test_port_imports_neither_jax_nor_repro():
     # The benchmark twins: none may load jax, repro or a JAX harness.
     twins = [
         "benchmarks.torch_adaptive_moe", "benchmarks.torch_common",
-        "benchmarks.torch_fig5_distance", "benchmarks.torch_fig69_methods",
+        "benchmarks.torch_dsl_trees", "benchmarks.torch_fig5_distance", "benchmarks.torch_fig69_methods",
         "benchmarks.torch_fleet_bench", "benchmarks.torch_kernel_bench",
         "benchmarks.torch_perf_iter", "benchmarks.torch_replay_bench",
         "benchmarks.torch_roofline", "benchmarks.torch_rulebook_bench",
