@@ -18,7 +18,7 @@ import sys
 sys.path.insert(0, "src")
 
 from repro_torch import cep
-from repro_torch.cep import P, RefEngine, RuntimeConfig
+from repro_torch.cep import P, RefEngine, RuntimeConfig, spans
 from repro_torch.data.cep_streams import StreamConfig, make_stream
 
 PATTERN = (P.seq(0, 1, 2)
@@ -52,7 +52,13 @@ def main(argv=None):
                              policy="invariant",
                              policy_kw={"k": 1, "d": 0.0},
                              device=args.device))
-    tel = session.run(tenant_streams(k, scfg))
+    # Tracing on for the engine and control times printed below.
+    spans.enable()
+    try:
+        tel = session.run(tenant_streams(k, scfg))
+    finally:
+        spans.disable()
+        spans.drain()
 
     print(f"== fleet of {k} tenants, {tel.chunks} chunks, "
           f"{tel.events} events ==")

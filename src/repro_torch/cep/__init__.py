@@ -16,12 +16,16 @@
     book.run(streams)                  # per-rule counters: book.match_counts
 
 ``RefEngine`` is exported so a session can be cross-checked against the
-brute-force oracle.
+brute-force oracle.  ``spans`` (``from repro_torch.cep import spans``;
+outside ``__all__``, which stays the reference package's surface) is the
+port's tracing: ``spans.enable()``, ``spans.disable()``, ``spans.drain()``
+for spans at the serving path's layer boundaries, off by default.
 """
 
 from ..core.patterns import CompositePattern, Pattern  # noqa: F401
 from ..core.plans import OrderPlan, TreePlan  # noqa: F401
 from ..core.ref_engine import RefEngine  # noqa: F401
+from ..core import spans  # noqa: F401
 from .config import RuntimeConfig  # noqa: F401
 from .dsl import P  # noqa: F401
 from .rulebook import Rulebook, open_rulebook  # noqa: F401

@@ -53,6 +53,7 @@ from ..core.fleet import (FleetChunk, FleetMetrics, FleetRunner,
                           MonitoredFleetRunner, stack_chunks, stacked_streams)
 from ..core.patterns import CompositePattern, Pattern
 from ..core.plans import plan_cost
+from ..core.spans import span
 from ..core.stats import uniform_stat
 from ..data.cep_streams import ChunkRecord
 from ..serving.engine import (CEPFleetServingEngine,
@@ -79,6 +80,9 @@ class Telemetry:
     ``dropped`` counts keyed-batch routing overflow (back-pressure).
     ``events`` is maintained by ``run`` and ``process`` — ``step`` skips
     it to avoid a per-tick count of the valid mask.
+    ``engine_time_s`` / ``control_time_s`` are the wall seconds spent in
+    the ``cep.engine`` / ``cep.control`` spans (``repro_torch.cep.spans``)
+    on every front; they stay 0.0 while tracing is off.
     """
 
     partitions: int = 1
@@ -278,25 +282,26 @@ class Session:
         so replaying a stream segment by segment is equivalent to one
         continuous ``run``.
         """
-        if self.is_composite:
-            chunks = list(_normalize_stream(stream, self.k))
-            parts = [b.run(chunks, resume=resume) for b in self.branches]
-            tel = Telemetry(partitions=self.k)
-            for p in parts:
-                tel.merge(p)
-            # chunks/events are shared input, not per-branch work
-            tel.chunks = parts[0].chunks if parts else 0
-            tel.events = parts[0].events if parts else 0
-            tel.branches = tuple(parts)
-            self._tel.merge(dataclasses.replace(tel, branches=None))
+        with span("cep.call"):
+            if self.is_composite:
+                chunks = list(_normalize_stream(stream, self.k))
+                parts = [b.run(chunks, resume=resume) for b in self.branches]
+                tel = Telemetry(partitions=self.k)
+                for p in parts:
+                    tel.merge(p)
+                # chunks/events are shared input, not per-branch work
+                tel.chunks = parts[0].chunks if parts else 0
+                tel.events = parts[0].events if parts else 0
+                tel.branches = tuple(parts)
+                self._tel.merge(dataclasses.replace(tel, branches=None))
+                return tel
+            if not (resume and self._runner is not None):
+                self._runner = self._make_runner()
+            metrics = self._runner.run(_normalize_stream(stream, self.k),
+                                       resume=resume)
+            tel = _from_fleet_metrics(metrics, self.k)
+            self._tel.merge(tel)
             return tel
-        if not (resume and self._runner is not None):
-            self._runner = self._make_runner()
-        metrics = self._runner.run(_normalize_stream(stream, self.k),
-                                   resume=resume)
-        tel = _from_fleet_metrics(metrics, self.k)
-        self._tel.merge(tel)
-        return tel
 
     # -- incremental (serving) control plane --------------------------------
 
@@ -333,17 +338,19 @@ class Session:
         ``telemetry().events`` is not updated here; use ``process``/``run``
         when event totals matter.
         """
-        if self.is_composite:
+        with span("cep.call"):
+            if self.is_composite:
+                self._tel.chunks += 1
+                return sum(b.step(chunk, t0, t1) for b in self.branches)
+            eng = self._ensure_serving()
+            if np.ndim(chunk.type_id) == 1:
+                if self.k != 1:
+                    raise ValueError("unstacked chunk on a multi-partition "
+                                     "session; stack K per-partition "
+                                     "chunks")
+                chunk = stack_chunks([chunk])
             self._tel.chunks += 1
-            return sum(b.step(chunk, t0, t1) for b in self.branches)
-        eng = self._ensure_serving()
-        if np.ndim(chunk.type_id) == 1:
-            if self.k != 1:
-                raise ValueError("unstacked chunk on a multi-partition "
-                                 "session; stack K per-partition chunks")
-            chunk = stack_chunks([chunk])
-        self._tel.chunks += 1
-        return eng.process_chunk(chunk, float(t0), float(t1))
+            return eng.process_chunk(chunk, float(t0), float(t1))
 
     def step_superchunk(self, chunks: Sequence[Chunk],
                         edges: Sequence[Tuple[float, float]]) -> np.ndarray:
@@ -356,28 +363,30 @@ class Session:
         of once per chunk.  Returns the per-chunk ``(len(chunks), K)``
         full-match counts.  Like ``step``, event totals are not kept.
         """
-        if self.is_composite:
+        with span("cep.call"):
+            if self.is_composite:
+                self._tel.chunks += len(chunks)
+                return sum(b.step_superchunk(chunks, edges)
+                           for b in self.branches)
+            eng = self._ensure_serving()
             self._tel.chunks += len(chunks)
-            return sum(b.step_superchunk(chunks, edges)
-                       for b in self.branches)
-        eng = self._ensure_serving()
-        self._tel.chunks += len(chunks)
-        return eng.process_superchunk(chunks, edges)
+            return eng.process_superchunk(chunks, edges)
 
     def process(self, type_id, ts, attr, keys, t0: float,
                 t1: float) -> np.ndarray:
         """Route one keyed event batch (``key % K``) covering ``(t0, t1]``
         and tick the fleet once; returns per-partition match counts."""
-        if self.is_composite:
+        with span("cep.call"):
+            if self.is_composite:
+                self._tel.chunks += 1
+                self._tel.events += int(len(np.asarray(type_id)))
+                return sum(b.process(type_id, ts, attr, keys, t0, t1)
+                           for b in self.branches)
+            eng = self._ensure_serving()
             self._tel.chunks += 1
             self._tel.events += int(len(np.asarray(type_id)))
-            return sum(b.process(type_id, ts, attr, keys, t0, t1)
-                       for b in self.branches)
-        eng = self._ensure_serving()
-        self._tel.chunks += 1
-        self._tel.events += int(len(np.asarray(type_id)))
-        return eng.process_batch(type_id, ts, attr, keys,
-                                 float(t0), float(t1))
+            return eng.process_batch(type_id, ts, attr, keys,
+                                     float(t0), float(t1))
 
     def deploy(self, partition: int, plan) -> None:
         """Deploy an evaluation plan for one partition: a stacked-matrix
@@ -417,6 +426,8 @@ class Session:
         tel.neg_rejected = int(eng.neg_rejected.sum())
         tel.closure_expansions = int(eng.closure_expansions.sum())
         tel.dropped = int(eng.dropped)
+        tel.engine_time_s = eng.engine_time_s
+        tel.control_time_s = eng.control_time_s
         if self.monitor:
             tel.violations = int(eng.violations.sum())
             tel.replans = int(eng.replans.sum())

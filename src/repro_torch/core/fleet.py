@@ -41,7 +41,6 @@ share their steps and windows through a process-wide memo
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import OrderedDict
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -60,6 +59,7 @@ from .engine import (NEG_INF, POS_INF, Buffers, Chunk, EngineConfig,
 from .invariants import LoweredInvariants, StackedLowered
 from .patterns import Pattern
 from .plans import OrderPlan, TreePlan
+from .spans import span
 from .stats import (MonitorState, Stat, fleet_monitor_init,
                     sample_selectivities, uniform_stat)
 
@@ -299,15 +299,16 @@ class FleetEngine:
         if self.blocks is not None:
             return Blocks(b.plan_operands(r) for b, r in
                           zip(self.blocks, self.layout.split(rows)))
-        key = rows.tobytes()
-        ops = self._operands.get(key)
-        if ops is None:
-            ops = self._operands[key] = self.base.plan_operands(rows)
-            while len(self._operands) > self._OPERANDS_CAP:
-                self._operands.popitem(last=False)
-        else:
-            self._operands.move_to_end(key)
-        return ops
+        with span("cep.plan_operands"):
+            key = rows.tobytes()
+            ops = self._operands.get(key)
+            if ops is None:
+                ops = self._operands[key] = self.base.plan_operands(rows)
+                while len(self._operands) > self._OPERANDS_CAP:
+                    self._operands.popitem(last=False)
+            else:
+                self._operands.move_to_end(key)
+            return ops
 
     # -- execution ---------------------------------------------------------
 
@@ -325,8 +326,9 @@ class FleetEngine:
     def _inputs(self, chunks: Chunk, plans, t0, t1, born_lo, born_hi):
         """The step's device inputs: the chunk, the plan operands and the
         clock."""
-        return (self._chunk(chunks), self.plan_operands(plans),
-                self._clock(t0, t1, born_lo, born_hi))
+        with span("cep.upload"):
+            return (self._chunk(chunks), self.plan_operands(plans),
+                    self._clock(t0, t1, born_lo, born_hi))
 
     def _block_inputs(self, chunks: Chunk, plans, *clock):
         """Every block's ``_inputs``, each block's slice of the chunk, the
@@ -483,8 +485,8 @@ class FleetMetrics:
     deployments: int = 0
     escalations: int = 0
     migration_partition_chunks: int = 0
-    engine_time_s: float = 0.0
-    control_time_s: float = 0.0
+    engine_time_s: float = 0.0     # in cep.engine spans (0.0 untraced)
+    control_time_s: float = 0.0    # in cep.control spans (0.0 untraced)
     violations: int = 0            # device invariant flags fired
     host_syncs: int = 0            # per-partition statistic pulls
     per_partition_matches: Optional[np.ndarray] = None
@@ -647,7 +649,8 @@ class FleetRunner:
     def _counters(self, res: StepResult) -> List[np.ndarray]:
         """The five (K,) counters, in one device-to-host transfer (one
         per block on a mesh)."""
-        both = to_host(lambda r: torch.stack(list(r)), res, axis=1)
+        with span("cep.readback"):
+            both = to_host(lambda r: torch.stack(list(r)), res, axis=1)
         return list(both.astype(np.int64))
 
     def _pass_b(self, state, fc, out, migrating, chunk):
@@ -736,29 +739,29 @@ class FleetRunner:
         adaptive = any(pol is not None for pol in self.policies)
 
         for fc in fleet_stream:
-            t_ctl = time.perf_counter()
-            if adaptive or any(pl is None for pl in self.cur_plans):
-                if adaptive:
-                    self._observe(fc)
-                for p in range(self.k):
-                    self._replan_partition(
-                        p, self.estimator.snapshot(p), fc.t0, m)
-            migrating = self._fold_lapsed(fc.t0)
-            m.control_time_s += time.perf_counter() - t_ctl
+            with span("cep.control") as t_ctl:
+                if adaptive or any(pl is None for pl in self.cur_plans):
+                    if adaptive:
+                        self._observe(fc)
+                    for p in range(self.k):
+                        self._replan_partition(
+                            p, self.estimator.snapshot(p), fc.t0, m)
+                migrating = self._fold_lapsed(fc.t0)
+            m.control_time_s += t_ctl.seconds
 
-            t_eng = time.perf_counter()
-            pre_fleet = self._active_fleet
-            state, counters = self._plain_passes(state, fc, fc.chunk,
-                                                 migrating)
-            state, counters = self._escalate(state, fc, migrating, counters,
-                                             m)
-            if migrating.any():
-                # A mid-migration overflow is the retiring plan's: recount
-                # at escalated capacity, but don't let the old era's shape
-                # outlive its migration window.
-                self._active_fleet = pre_fleet
-                m.migration_partition_chunks += int(migrating.sum())
-            m.engine_time_s += time.perf_counter() - t_eng
+            with span("cep.engine") as t_eng:
+                pre_fleet = self._active_fleet
+                state, counters = self._plain_passes(state, fc, fc.chunk,
+                                                     migrating)
+                state, counters = self._escalate(state, fc, migrating,
+                                                 counters, m)
+                if migrating.any():
+                    # A mid-migration overflow is the retiring plan's:
+                    # recount at escalated capacity, but don't let the old
+                    # era's shape outlive its migration window.
+                    self._active_fleet = pre_fleet
+                    m.migration_partition_chunks += int(migrating.sum())
+            m.engine_time_s += t_eng.seconds
             self._tally(m, fc, counters)
         self._state = state
         return m
@@ -796,10 +799,21 @@ def replan_flagged_partition(pattern: Pattern, planner, policy,
     """Violation follow-up for one flagged partition: re-run ``A`` on the
     synced statistics, rebase the policy on the fresh DCSs, and redeploy
     the partition's lowered invariant row.  Returns the new plan."""
-    new_plan, dcs = planner(pattern, stat)
-    policy.on_replan(new_plan, dcs, stat)
-    low.write_row(p, policy.compile(pattern.n, *caps))
+    with span("cep.plan"):
+        new_plan, dcs = planner(pattern, stat)
+    with span("cep.lower"):
+        policy.on_replan(new_plan, dcs, stat)
+        low.write_row(p, policy.compile(pattern.n, *caps))
     return new_plan
+
+
+def read_stat(rates, sel, p: int) -> Stat:
+    """Flagged partition ``p``'s statistics, synced to the host from the
+    device's ``(K, n)`` rates and ``(K, n, n)`` selectivities (``Blocks``
+    on a mesh): the only per-partition statistic read."""
+    with span("cep.stat_read"):
+        return Stat(block_row(rates, p).cpu().numpy().astype(np.float64),
+                    block_row(sel, p).cpu().numpy().astype(np.float64))
 
 
 class MonitoredFleetRunner(FleetRunner):
@@ -879,10 +893,9 @@ class MonitoredFleetRunner(FleetRunner):
         partitions whose device flag fired on the last processed chunk,
         each costing exactly one statistics sync, so ``violations ==
         host_syncs == replans`` holds by construction."""
-        for p in np.nonzero(pending)[0]:
-            stat = Stat(
-                block_row(rates, p).cpu().numpy().astype(np.float64),
-                block_row(sel, p).cpu().numpy().astype(np.float64))
+        flagged = np.nonzero(pending)[0]
+        for p in flagged:
+            stat = read_stat(rates, sel, p)
             m.violations += 1
             m.host_syncs += 1
             new_plan = replan_flagged_partition(
@@ -890,7 +903,8 @@ class MonitoredFleetRunner(FleetRunner):
                 self._low, p, stat, self._caps)
             m.replans += 1
             if new_plan != self.cur_plans[p]:
-                self._deploy(p, new_plan, t0, m)
+                with span("cep.deploy"):
+                    self._deploy(p, new_plan, t0, m)
 
     def _carry(self, resume: bool):
         if resume and self._state is not None:
@@ -917,36 +931,41 @@ class MonitoredFleetRunner(FleetRunner):
             self._prime()
 
         for fc in fleet_stream:
-            t_ctl = time.perf_counter()
-            self._apply_pending(pending, rates_dev, sel_dev, fc.t0, m)
-            pending[:] = False
-            migrating = self._fold_lapsed(fc.t0)
-            m.control_time_s += time.perf_counter() - t_ctl
+            with span("cep.control") as t_ctl:
+                self._apply_pending(pending, rates_dev, sel_dev, fc.t0, m)
+                pending[:] = False
+                migrating = self._fold_lapsed(fc.t0)
+            m.control_time_s += t_ctl.seconds
 
-            t_eng = time.perf_counter()
-            # Pass A, fused: joins + ring update + invariant verification.
-            state, monitor, res, violated, drift, rates_dev, sel_dev = \
-                self._active_fleet.process_chunk_monitored(
-                    state, monitor, fc.chunk, self._cur_rows,
-                    self._low.device(), fc.t0, fc.t1,
-                    born_lo=self._replan_t.astype(np.float32),
-                    born_hi=_POS_INF)
-            state, counters = self._pass_b(state, fc, self._counters(res),
-                                           migrating, fc.chunk)
-            # Escalation recounts run the plain passes so the statistics
-            # ring is updated exactly once per chunk.
-            pre_fleet = self._active_fleet
-            state, counters = self._escalate(state, fc, migrating, counters,
-                                             m)
-            if migrating.any():
-                # Mid-migration overflow: transient recount, not a regime.
-                self._active_fleet = pre_fleet
-                m.migration_partition_chunks += int(migrating.sum())
+            with span("cep.engine") as t_eng:
+                # Pass A, fused: joins + ring update + invariant
+                # verification.
+                state, monitor, res, violated, drift, rates_dev, sel_dev = \
+                    self._active_fleet.process_chunk_monitored(
+                        state, monitor, fc.chunk, self._cur_rows,
+                        self._low.device(), fc.t0, fc.t1,
+                        born_lo=self._replan_t.astype(np.float32),
+                        born_hi=_POS_INF)
+                state, counters = self._pass_b(
+                    state, fc, self._counters(res), migrating, fc.chunk)
+                # Escalation recounts run the plain passes so the
+                # statistics ring is updated exactly once per chunk.
+                pre_fleet = self._active_fleet
+                state, counters = self._escalate(state, fc, migrating,
+                                                 counters, m)
+                if migrating.any():
+                    # Mid-migration overflow: transient recount, not a
+                    # regime.
+                    self._active_fleet = pre_fleet
+                    m.migration_partition_chunks += int(migrating.sum())
 
-            # The rest of the per-chunk host round-trip: flags and drift.
-            pending = to_host(lambda v: v, violated).copy()
-            m.last_drift = to_host(lambda x: x, drift).astype(np.float32)
-            m.engine_time_s += time.perf_counter() - t_eng
+                # The rest of the per-chunk host round-trip: flags and
+                # drift.
+                with span("cep.readback"):
+                    pending = to_host(lambda v: v, violated).copy()
+                    m.last_drift = to_host(lambda x: x,
+                                           drift).astype(np.float32)
+            m.engine_time_s += t_eng.seconds
             self._tally(m, fc, counters)
         self._save_carry(state, monitor, pending, rates_dev, sel_dev)
         return m
@@ -985,73 +1004,79 @@ class MonitoredFleetRunner(FleetRunner):
                     exhausted = True
             if not buf:
                 break
-            t_ctl = time.perf_counter()
-            self._apply_pending(pending, pend_rates, pend_sel, buf[0].t0, m)
-            pending[:] = False
-            n_en = len(buf)
-            ctl = window_control(self._replan_t, self._migration_until,
-                                 [fc.t0 for fc in buf], s_cap)
-            xs = stack_window([fc.chunk for fc in buf],
-                              [fc.t0 for fc in buf],
-                              [fc.t1 for fc in buf], ctl, s_cap)
-            m.control_time_s += time.perf_counter() - t_ctl
+            with span("cep.control") as t_ctl:
+                self._apply_pending(pending, pend_rates, pend_sel,
+                                    buf[0].t0, m)
+                pending[:] = False
+                n_en = len(buf)
+                ctl = window_control(self._replan_t, self._migration_until,
+                                     [fc.t0 for fc in buf], s_cap)
+            m.control_time_s += t_ctl.seconds
 
-            t_eng = time.perf_counter()
-            window = self._active_fleet.superchunk_scan(monitored=True)
-            low_dev = self._low.device()
-            state2, monitor2, ys = window(state, monitor, self._cur_rows,
-                                          self._old_rows, low_dev, xs)
-            # One readback of counters, flags and drift; the (S, K, n[, n])
-            # statistics stay on the device and are pulled per flagged
-            # partition, as per chunk.
-            full_h, pm_h, ov_h, cl_h, ng_h, violated_h, drift_h = \
-                ys.host(n_en)
-            f = first_event(violated_h, ov_h, n_en,
-                            self.escalate_on_overflow)
-            if f is not None and f < n_en - 1:
-                # In-window event: accept chunks [0..f] and continue from
-                # the carry after chunk f, so the host can replan /
-                # escalate before chunk f+1 runs, exactly as per chunk.
-                state2, monitor2 = ys.carry_after(f)
-                self.in_window_events += 1
-            accept = n_en if f is None else f + 1
-            last = accept - 1
-            state, monitor = state2, monitor2
+            with span("cep.engine") as t_eng:
+                window = self._active_fleet.superchunk_scan(monitored=True)
+                with span("cep.upload"):
+                    xs = stack_window([fc.chunk for fc in buf],
+                                      [fc.t0 for fc in buf],
+                                      [fc.t1 for fc in buf], ctl, s_cap)
+                    staged = window.stage(self._cur_rows, self._old_rows, xs)
+                state2, monitor2, ys = window.launch(
+                    state, monitor, self._low.device(), staged)
+                # One readback of counters, flags and drift; the
+                # (S, K, n[, n]) statistics stay on the device and are
+                # pulled per flagged partition, as per chunk.
+                with span("cep.readback"):
+                    full_h, pm_h, ov_h, cl_h, ng_h, violated_h, drift_h = \
+                        ys.host(n_en)
+                f = first_event(violated_h, ov_h, n_en,
+                                self.escalate_on_overflow)
+                if f is not None and f < n_en - 1:
+                    # In-window event: accept chunks [0..f] and continue
+                    # from the carry after chunk f, so the host can replan
+                    # / escalate before chunk f+1 runs, exactly as per
+                    # chunk.
+                    state2, monitor2 = ys.carry_after(f)
+                    self.in_window_events += 1
+                accept = n_en if f is None else f + 1
+                last = accept - 1
+                state, monitor = state2, monitor2
 
-            # Commit the host mirrors to the fold state at the last accepted
-            # chunk (float64, the per-chunk loop's trajectory, including
-            # retiring the lapsed partitions' old plans).
-            self._replan_t = ctl.replan_seq[last].copy()
-            lapsed = ctl.old_sel[last]
-            self._old_rows[lapsed] = self._cur_rows[lapsed]
-            for p in np.nonzero(lapsed)[0]:
-                self.old_plans[p] = None
+                # Commit the host mirrors to the fold state at the last
+                # accepted chunk (float64, the per-chunk loop's trajectory,
+                # including retiring the lapsed partitions' old plans).
+                self._replan_t = ctl.replan_seq[last].copy()
+                lapsed = ctl.old_sel[last]
+                self._old_rows[lapsed] = self._cur_rows[lapsed]
+                for p in np.nonzero(lapsed)[0]:
+                    self.old_plans[p] = None
 
-            counters = [np.asarray(c, np.int64)
-                        for c in (full_h, pm_h, ov_h, cl_h, ng_h)]
-            row_l = [c[last].copy() for c in counters]
-            pre_fleet = self._active_fleet
-            if self.escalate_on_overflow and row_l[2].sum() > 0:
-                # Overflow recovery for the event chunk, as per chunk: a
-                # recount at the next pow2 match capacity from the
-                # post-chunk state; the escalated fleet persists for the
-                # following windows.
-                state, row_l = self._escalate(
-                    state, buf[last], ctl.migrating[last], row_l, m)
-            if ctl.migrating[last].any():
-                # Mid-migration overflow: transient recount, not a regime.
-                self._active_fleet = pre_fleet
+                counters = [np.asarray(c, np.int64)
+                            for c in (full_h, pm_h, ov_h, cl_h, ng_h)]
+                row_l = [c[last].copy() for c in counters]
+                pre_fleet = self._active_fleet
+                if self.escalate_on_overflow and row_l[2].sum() > 0:
+                    # Overflow recovery for the event chunk, as per chunk:
+                    # a recount at the next pow2 match capacity from the
+                    # post-chunk state; the escalated fleet persists for
+                    # the following windows.
+                    state, row_l = self._escalate(
+                        state, buf[last], ctl.migrating[last], row_l, m)
+                if ctl.migrating[last].any():
+                    # Mid-migration overflow: transient recount, not a
+                    # regime.
+                    self._active_fleet = pre_fleet
 
-            for s in range(accept):
-                row = row_l if s == last else [c[s] for c in counters]
-                self._tally(m, buf[s], row)
-            m.migration_partition_chunks += int(ctl.migrating[:accept].sum())
-            m.last_drift = np.asarray(drift_h[last], np.float32)
-            pending = np.asarray(violated_h[last]).copy()
-            # Device slices of the window's outputs (not a graph's output
-            # buffers, which the next replay overwrites).
-            pend_rates, pend_sel = ys.stats(last)
-            m.engine_time_s += time.perf_counter() - t_eng
+                for s in range(accept):
+                    row = row_l if s == last else [c[s] for c in counters]
+                    self._tally(m, buf[s], row)
+                m.migration_partition_chunks += int(
+                    ctl.migrating[:accept].sum())
+                m.last_drift = np.asarray(drift_h[last], np.float32)
+                pending = np.asarray(violated_h[last]).copy()
+                # Device slices of the window's outputs (not a graph's
+                # output buffers, which the next replay overwrites).
+                pend_rates, pend_sel = ys.stats(last)
+            m.engine_time_s += t_eng.seconds
             buf = buf[accept:]
         self._save_carry(state, monitor, pending, pend_rates, pend_sel)
         return m

@@ -681,11 +681,19 @@ class MeshWindow:
 
     def __call__(self, buffers, monitor, cur_rows, old_rows, lowered,
                  xs: SuperchunkXs):
+        return self.launch(buffers, monitor, lowered,
+                           self.stage(cur_rows, old_rows, xs))
+
+    def stage(self, cur_rows, old_rows, xs: SuperchunkXs):
+        """Every block's ``SuperchunkWindow.stage``, as ``Blocks``."""
         lay = self.layout
         cur, old = lay.split(cur_rows), lay.split(old_rows)
-        xs_b = block_xs(lay, xs)
-        staged = Blocks(w.stage(c, o, x) for w, c, o, x in
-                        zip(self.windows, cur, old, xs_b))
+        return Blocks(w.stage(c, o, x) for w, c, o, x in
+                      zip(self.windows, cur, old, block_xs(lay, xs)))
+
+    def launch(self, buffers, monitor, lowered, staged):
+        """Every block's ``SuperchunkWindow.launch`` over its staged
+        inputs."""
         state, mon, outs = map_blocks(
             lambda w, b, m, low, st: w.launch(b, m, low, st),
             Blocks(self.windows), buffers, monitor, lowered, staged)

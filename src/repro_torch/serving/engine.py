@@ -42,10 +42,11 @@ from ..core.compat import warn_legacy
 from ..core.decision import InvariantPolicy
 from ..core.engine import EngineConfig, canonical_device, resolve_device
 from ..core.fleet import (FleetEngine, prime_invariant_policies,
-                          replan_flagged_partition, route_events)
+                          read_stat, replan_flagged_partition,
+                          route_events)
 from ..core.patterns import Pattern
-from ..core.stats import Stat
-from ..distributed.sharding import block_row, resolve_cep_mesh, to_host
+from ..core.spans import span
+from ..distributed.sharding import resolve_cep_mesh, to_host
 from ..models.config import ModelConfig
 from ..models.model import Cache, Model
 from ..models.params import load_params
@@ -125,7 +126,9 @@ class CEPFleetServingEngine:
     ``process_batch`` takes one keyed event batch covering the time slice
     ``(t0, t1]``, routes it to partitions and advances all K partitions in
     one fleet step.  Per-partition cumulative match counts and
-    capacity-drop back-pressure are exposed for the router.
+    capacity-drop back-pressure are exposed for the router;
+    ``engine_time_s`` / ``control_time_s`` sum the ``cep.engine`` /
+    ``cep.control`` spans (0.0 while tracing is off).
     """
 
     def __init__(self, pattern: Pattern, k: int, plans,
@@ -148,6 +151,7 @@ class CEPFleetServingEngine:
         self.closure_expansions = np.zeros(k, np.int64)
         self.overflow = np.zeros(k, np.int64)
         self.dropped = 0
+        self.engine_time_s = self.control_time_s = 0.0
 
     def reset(self) -> None:
         """Clear stream state and counters; deployed plan rows (and
@@ -158,6 +162,7 @@ class CEPFleetServingEngine:
                     self.closure_expansions, self.overflow):
             arr[:] = 0
         self.dropped = 0
+        self.engine_time_s = self.control_time_s = 0.0
 
     def deploy_plan(self, partition: int, plan) -> None:
         """Cheap deployment (§2.2): rewrite one stacked plan row."""
@@ -193,9 +198,13 @@ class CEPFleetServingEngine:
 
     def process_chunk(self, chunk, t0: float, t1: float) -> np.ndarray:
         """Tick the fleet once over an already-routed stacked chunk."""
-        self.state, res = self.fleet.process_chunk(
-            self.state, chunk, self._rows, t0, t1)
-        return self._accumulate(res)
+        with span("cep.engine") as t_eng:
+            self.state, res = self.fleet.process_chunk(
+                self.state, chunk, self._rows, t0, t1)
+            with span("cep.readback"):
+                full = self._accumulate(res)
+        self.engine_time_s += t_eng.seconds
+        return full
 
     def process_batch(self, type_id, ts, attr, keys,
                       t0: float, t1: float) -> np.ndarray:
@@ -240,15 +249,20 @@ class CEPFleetServingEngine:
         ctl = static_control(self.k, s_cap)
         i = 0
         while i < n:
-            win = chunks[i:i + s_cap]
-            t0s = [e[0] for e in edges[i:i + len(win)]]
-            t1s = [e[1] for e in edges[i:i + len(win)]]
-            xs = stack_window(win, t0s, t1s, ctl, s_cap)
-            self.state, _, ys = window(self.state, None, self._rows,
-                                       self._rows, None, xs)
-            h = ys.host(len(win))
-            out[i:i + len(win)] = self._accumulate_rows(
-                (h.full, h.neg, h.closure, h.overflow), len(win))
+            with span("cep.engine") as t_eng:
+                win = chunks[i:i + s_cap]
+                t0s = [e[0] for e in edges[i:i + len(win)]]
+                t1s = [e[1] for e in edges[i:i + len(win)]]
+                with span("cep.upload"):
+                    xs = stack_window(win, t0s, t1s, ctl, s_cap)
+                    staged = window.stage(self._rows, self._rows, xs)
+                self.state, _, ys = window.launch(self.state, None, None,
+                                                  staged)
+                with span("cep.readback"):
+                    h = ys.host(len(win))
+                out[i:i + len(win)] = self._accumulate_rows(
+                    (h.full, h.neg, h.closure, h.overflow), len(win))
+            self.engine_time_s += t_eng.seconds
             i += len(win)
         return out
 
@@ -329,31 +343,36 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
         """The O(violations) control plane: sync + replan flagged rows only.
         A partition's ``rates``/``sel`` row is moved to the host only when
         its flag fired."""
-        for p in np.nonzero(np.asarray(fired_mask))[0]:
-            self.violations[p] += 1
-            self.host_syncs += 1
-            stat = Stat(
-                block_row(rates, p).cpu().numpy().astype(np.float64),
-                block_row(sel, p).cpu().numpy().astype(np.float64))
-            new_plan = replan_flagged_partition(
-                self.pattern, self.planner, self.policies[p],
-                self._low, p, stat, self._caps)
-            if new_plan != self.plans[p]:
-                self.deploy_plan(p, new_plan)  # also records self.plans[p]
-                self.replans[p] += 1
+        with span("cep.control") as t_ctl:
+            flagged = np.nonzero(np.asarray(fired_mask))[0]
+            for p in flagged:
+                self.violations[p] += 1
+                self.host_syncs += 1
+                new_plan = replan_flagged_partition(
+                    self.pattern, self.planner, self.policies[p],
+                    self._low, p, read_stat(rates, sel, p), self._caps)
+                if new_plan != self.plans[p]:
+                    with span("cep.deploy"):
+                        self.deploy_plan(p, new_plan)  # records plans[p]
+                    self.replans[p] += 1
+        self.control_time_s += t_ctl.seconds
 
     def process_chunk(self, chunk, t0: float, t1: float) -> np.ndarray:
         """Tick the fused monitored fleet over an already-routed chunk and
         replan any partition whose invariant flag fired."""
-        self.state, self.monitor, res, violated, drift, rates, sel = \
-            self.fleet.process_chunk_monitored(
-                self.state, self.monitor, chunk, self._rows,
-                self._low.device(), t0, t1)
-        full = self._accumulate(res)
-        # The flags and the drift in one transfer (per block on a mesh).
-        vd = to_host(lambda v, d: torch.stack([v.to(torch.float32),
-                                               d.to(torch.float32)]),
-                     violated, drift, axis=1)
+        with span("cep.engine") as t_eng:
+            self.state, self.monitor, res, violated, drift, rates, sel = \
+                self.fleet.process_chunk_monitored(
+                    self.state, self.monitor, chunk, self._rows,
+                    self._low.device(), t0, t1)
+            with span("cep.readback"):
+                full = self._accumulate(res)
+                # The flags and the drift in one transfer (per block on a
+                # mesh).
+                vd = to_host(lambda v, d: torch.stack([v.to(torch.float32),
+                                                       d.to(torch.float32)]),
+                             violated, drift, axis=1)
+        self.engine_time_s += t_eng.seconds
         self.last_drift = vd[1].astype(np.float32)
         self._apply_flags(vd[0] > 0.5, rates, sel)
         return full
@@ -380,25 +399,29 @@ class MonitoredCEPFleetServingEngine(CEPFleetServingEngine):
         ctl = static_control(self.k, s_cap)
         i = 0
         while i < n:
-            win = chunks[i:i + s_cap]
-            n_en = len(win)
-            t0s = [e[0] for e in edges[i:i + n_en]]
-            t1s = [e[1] for e in edges[i:i + n_en]]
-            xs = stack_window(win, t0s, t1s, ctl, s_cap)
-            low_dev = self._low.device()
-            state2, mon2, ys = window(self.state, self.monitor, self._rows,
-                                      self._rows, low_dev, xs)
-            h = ys.host(n_en)
-            f = first_event(h.violated, h.overflow, n_en, escalate=False)
-            if f is not None and f < n_en - 1:
-                state2, mon2 = ys.carry_after(f)
-                self.in_window_events += 1
-            accept = n_en if f is None else f + 1
-            self.state, self.monitor = state2, mon2
-            out[i:i + accept] = self._accumulate_rows(
-                (h.full, h.neg, h.closure, h.overflow), accept)
-            last = accept - 1
-            self.last_drift = np.asarray(h.drift[last], np.float32)
+            with span("cep.engine") as t_eng:
+                win = chunks[i:i + s_cap]
+                n_en = len(win)
+                t0s = [e[0] for e in edges[i:i + n_en]]
+                t1s = [e[1] for e in edges[i:i + n_en]]
+                with span("cep.upload"):
+                    xs = stack_window(win, t0s, t1s, ctl, s_cap)
+                    staged = window.stage(self._rows, self._rows, xs)
+                state2, mon2, ys = window.launch(
+                    self.state, self.monitor, self._low.device(), staged)
+                with span("cep.readback"):
+                    h = ys.host(n_en)
+                f = first_event(h.violated, h.overflow, n_en, escalate=False)
+                if f is not None and f < n_en - 1:
+                    state2, mon2 = ys.carry_after(f)
+                    self.in_window_events += 1
+                accept = n_en if f is None else f + 1
+                self.state, self.monitor = state2, mon2
+                out[i:i + accept] = self._accumulate_rows(
+                    (h.full, h.neg, h.closure, h.overflow), accept)
+                last = accept - 1
+                self.last_drift = np.asarray(h.drift[last], np.float32)
+            self.engine_time_s += t_eng.seconds
             self._apply_flags(h.violated[last], *ys.stats(last))
             i += accept
         return out

@@ -314,6 +314,7 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.multipattern",
         "repro_torch.core.patterns", "repro_torch.core.plans",
         "repro_torch.core.ref_engine", "repro_torch.core.scan",
+        "repro_torch.core.spans",
         "repro_torch.core.stats", "repro_torch.core.zstream",
         "repro_torch.configs", "repro_torch.configs.dbrx_132b",
         "repro_torch.configs.deepseek_moe_16b",
