@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
+from collections import OrderedDict
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +50,15 @@ _NONE = PRED_NONE
 # Born-window sentinels (f32-safe ±inf), as in the reference.
 NEG_INF = -3.0e38
 POS_INF = 3.0e38
+
+# Order-row strip lookups in ``OrderEngine.plan_operands``, for tests and
+# probes: rows whose strips were derived, and rows served from the memo.
+STRIP_COUNTS: Dict[str, int] = {"built": 0, "reused": 0}
+
+
+def reset_strip_counts() -> None:
+    for key in STRIP_COUNTS:
+        STRIP_COUNTS[key] = 0
 
 
 class Chunk(NamedTuple):
@@ -493,8 +503,10 @@ def _finalize(spec: _Spec, cfg: EngineConfig, buffers: Buffers,
 # plan-dependent structure (which op applies per row, which placed position
 # anchors the sequence-order rows) — a function of the order row alone.
 # ``build_order_strips`` derives the second half on the host, once per
-# deployed plan matrix; thresholds and attribute gather columns are static
-# pattern data (``_packed_thetas`` / ``_pred_cols``).
+# order row: ``OrderEngine`` keeps each row's strips, so a new plan matrix
+# is stacked from strips already derived and builds only orders it has not
+# seen.  Thresholds and attribute gather columns are static pattern data
+# (``_packed_thetas`` / ``_pred_cols``).
 
 
 class PredicateStrips(NamedTuple):
@@ -624,21 +636,42 @@ class OrderEngine(_Engine):
     """Executes order-based plans for K partitions at once; the (K, n)
     order-row matrix is an argument, so plans change without new shapes."""
 
+    # Order rows whose strips are kept, least recently used out first:
+    # every order of a SEQ of 6 (720) fits, so a replan derives at most
+    # its own row's strips.
+    _STRIPS_CAP = 4096
+
     def __init__(self, pattern: Pattern, cfg: EngineConfig = EngineConfig()):
         super().__init__(pattern, cfg)
         self._thetas = torch.as_tensor(_packed_thetas(self.spec),
                                        device=self.device)
         self._pred_cols = _pred_cols(self.spec)
+        self._strips: "OrderedDict[bytes, PredicateStrips]" = OrderedDict()
 
     @staticmethod
     def plan_row(plan) -> np.ndarray:
         return np.asarray(plan.order, np.int32)
 
+    def _row_strips(self, row: np.ndarray) -> PredicateStrips:
+        """One int32 order row's strips: kept, or derived and kept."""
+        key = row.tobytes()
+        strips = self._strips.get(key)
+        if strips is None:
+            STRIP_COUNTS["built"] += 1
+            strips = self._strips[key] = build_order_strips(self.spec, row)
+            if len(self._strips) > self._STRIPS_CAP:
+                self._strips.popitem(last=False)
+        else:
+            STRIP_COUNTS["reused"] += 1
+            self._strips.move_to_end(key)
+        return strips
+
     def plan_operands(self, rows) -> PlanOperands:
         """Stacked strips for a (K, n) row matrix (or one (n,) row, K = 1),
-        derived on the host and moved to the engine's device."""
+        each row's taken from the engine's memo (derived on the host the
+        first time its order is seen), moved to the engine's device."""
         rows = np.atleast_2d(np.asarray(rows, np.int64))
-        strips = [build_order_strips(self.spec, r) for r in rows]
+        strips = [self._row_strips(r) for r in rows.astype(np.int32)]
         dev = self.device
         return PlanOperands(
             row=torch.as_tensor(rows, device=dev),

@@ -209,8 +209,10 @@ class FleetEngine:
     per partition (a stacked row matrix); the pattern and the capacities
     are shared.  Host chunk arrays are moved to the engine's device on each
     call; a plan matrix's device operands (an order matrix's strips, a tree
-    matrix's slot program) are built once and cached while the matrix is
-    deployed, so a deployed plan costs no host-to-device copy per chunk.
+    matrix's slot program) are cached while the matrix is deployed, so a
+    deployed plan costs no host-to-device copy per chunk.  A new order
+    matrix is stacked from the strips ``OrderEngine`` keeps per order row,
+    so a replan derives only the strips of orders not seen before.
 
     ``mesh`` (``distributed.sharding.resolve_cep_mesh``) splits K over a
     ``cep`` device mesh: the engine then holds one unmeshed engine per

@@ -25,9 +25,10 @@ Span names (the serving path, ``cep/session.py`` down to ``core/scan.py``):
   ``run``; it gives the call id.
 * ``cep.engine``: the data plane of one chunk or window (or one chunk of
   ``run``), with ``cep.upload`` (host inputs to the device; inside it
-  ``cep.plan_operands``, the plan matrix's device operands, built on the
-  host when the matrix is not cached) and ``cep.readback`` (the host waits
-  for and reads back counters, flags and drift).
+  ``cep.plan_operands``, the plan matrix's device operands, stacked on the
+  host from each order row's kept strips and uploaded when the matrix is
+  not cached) and ``cep.readback`` (the host waits for and reads back
+  counters, flags and drift).
 * ``cep.control``: the host control after a readback, with per flagged
   partition ``cep.stat_read`` (its statistics to the host), ``cep.plan``
   (the planner), ``cep.lower`` (the policy's invariant set lowered and
